@@ -1,0 +1,454 @@
+"""Tiered page pool of the port: the host control plane of one size.
+
+Counterpart of :mod:`repro.tiering.page_pool`, cut to what the device sweep
+(:mod:`repro_torch.sim.torch_engine`) needs. The tier state of every swept
+fast-memory size lives on the device in the engine, as one stacked
+``[n_sizes, rss_pages]`` int8 array; each size keeps a slice pool here for
+its control plane: hardware capacity, kswapd budget, watermarks, the
+occupancy counters and the cumulative stats the profilers and tuners read.
+The slice pool's host ``tier`` row holds the placement before the run
+(:meth:`TieredPagePool.place`) and the device state imported after it.
+
+The TPP schedule recurrence (:func:`_bulk_schedule`,
+:func:`_bulk_schedule_batch`) and the thrash-regime victim resolver
+(:func:`_resolve_step_victims`) are copied unchanged: the engine runs them
+on the host over integers pulled from the device.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+import numpy as np
+
+
+class Tier(enum.IntEnum):
+    UNALLOCATED = -1
+    FAST = 0
+    SLOW = 1
+
+
+_UNALLOC = int(Tier.UNALLOCATED)
+_FAST = int(Tier.FAST)
+_SLOW = int(Tier.SLOW)
+
+
+@dataclass
+class Watermarks:
+    """Watermarks expressed in *free fast pages* (kernel convention).
+
+    The paper sets ``low = high = new_fm`` and ``min = 0.8 * low`` in
+    fast-memory-size units; translated to free-page units against a fixed
+    hardware capacity ``cap`` this is ``low_free = high_free = cap - new_fm``
+    and ``min_free = 0.8 * low_free``.
+    """
+
+    min_free: int
+    low_free: int
+    high_free: int
+
+    @classmethod
+    def for_size(cls, hw_capacity: int, new_fm: int) -> "Watermarks":
+        new_fm = int(max(1, min(hw_capacity, new_fm)))
+        low = hw_capacity - new_fm
+        return cls(min_free=int(0.8 * low), low_free=low, high_free=low)
+
+
+@dataclass
+class PoolStats:
+    """Cumulative counters (the /proc/vmstat analogue)."""
+
+    pgpromote_success: int = 0
+    pgpromote_fail: int = 0  # paper's "page migration failures"
+    pgdemote_kswapd: int = 0
+    pgdemote_direct: int = 0
+    direct_reclaim_events: int = 0
+    alloc_fast: int = 0
+    alloc_slow: int = 0  # first-touch spill
+
+    def snapshot(self) -> dict:
+        return dict(self.__dict__)
+
+
+def _bulk_schedule(
+    free: int,
+    fast_count: int,
+    min_free: int,
+    low_free: int,
+    high_free: int,
+    kswapd_batch: int,
+    n_cand: int,
+    events_out: list | None = None,
+) -> tuple[int, int, int, int, int, int]:
+    """Scalar TPP promote/reclaim schedule for one policy step.
+
+    The TPP interleaving (promote into the headroom above the min
+    watermark, reclaim, repeat) is a recurrence over ``fast_free`` and the
+    watermarks: chunk sizes, reclaim amounts and failure counts never look
+    at page identity. This computes the whole step's outcome with plain
+    integers; the device step then applies the array work once. Returns ``(pm_pr, pm_de, pm_fail, direct_total, events,
+    d_demand)``.
+
+    ``events_out``, when given, receives one ``(promoted_prefix, demand)``
+    tuple per demoting reclaim invocation, in step order (the direct and
+    kswapd portions of one invocation are fused: no promotion happens
+    between them, so they select victims from the same availability set).
+    ``promoted_prefix`` is how many candidates had been promoted when the
+    reclaim ran — the availability horizon the thrash-regime victim
+    resolver (:func:`_resolve_step_victims`) partitions against.
+    """
+    done = pm_de = pm_fail = direct_total = events = 0
+    d_demand = 0
+    while done < n_cand:
+        headroom = free - min_free
+        if headroom <= 0:
+            # run_reclaim(allow_direct=True)
+            d_event = 0
+            if free < min_free:
+                n = min(min_free - free, fast_count)
+                if n > 0:
+                    d_demand += n
+                    d_event += n
+                    fast_count -= n
+                    free += n
+                    pm_de += n
+                    direct_total += n
+                events += 1
+            if free < low_free:
+                n = min(high_free - free, kswapd_batch, fast_count)
+                if n > 0:
+                    d_demand += n
+                    d_event += n
+                    fast_count -= n
+                    free += n
+                    pm_de += n
+            if events_out is not None and d_event:
+                events_out.append((done, d_event))
+            headroom = free - min_free
+            if headroom <= 0:
+                pm_fail = n_cand - done
+                break
+        chunk = min(headroom, n_cand - done)
+        done += chunk
+        free -= chunk
+        fast_count += chunk
+    # final run_reclaim() — kswapd only
+    if free < low_free:
+        n = min(high_free - free, kswapd_batch, fast_count)
+        if n > 0:
+            d_demand += n
+            fast_count -= n
+            free += n
+            pm_de += n
+            if events_out is not None:
+                events_out.append((done, n))
+    return done, pm_de, pm_fail, direct_total, events, d_demand
+
+
+def _bulk_schedule_batch(
+    free: np.ndarray,
+    fast_count: np.ndarray,
+    min_free: np.ndarray,
+    low_free: np.ndarray,
+    high_free: np.ndarray,
+    kswapd_batch: np.ndarray,
+    n_cand: np.ndarray,
+):
+    """:func:`_bulk_schedule` across a whole size vector at once.
+
+    Every scalar of the recurrence becomes an ``[n_sizes]`` int64 vector
+    and the while-loop runs until every size's schedule has terminated, so
+    the sweep pays one vectorized pass instead of ``n_sizes`` Python
+    loops. Arithmetic is integer and identical to the scalar version —
+    ``tests/test_engine_equivalence.py`` pins per-lane equality — which is
+    what keeps the cross-size batched policy step bit-exact.
+
+    Returns six ``[n_sizes]`` int64 arrays in :func:`_bulk_schedule`'s
+    order: ``(pm_pr, pm_de, pm_fail, direct_total, events, d_demand)``.
+    """
+    free = np.asarray(free, dtype=np.int64).copy()
+    fast_count = np.asarray(fast_count, dtype=np.int64).copy()
+    min_free = np.asarray(min_free, dtype=np.int64)
+    low_free = np.asarray(low_free, dtype=np.int64)
+    high_free = np.asarray(high_free, dtype=np.int64)
+    kswapd_batch = np.asarray(kswapd_batch, dtype=np.int64)
+    n_cand = np.asarray(n_cand, dtype=np.int64)
+    zeros = np.zeros_like(free)
+    done = zeros.copy()
+    pm_de = zeros.copy()
+    pm_fail = zeros.copy()
+    direct_total = zeros.copy()
+    events = zeros.copy()
+    d_demand = zeros.copy()
+    active = done < n_cand
+    while bool(active.any()):
+        headroom = free - min_free
+        reclaim = active & (headroom <= 0)
+        if bool(reclaim.any()):
+            # run_reclaim(allow_direct=True): direct to min, kswapd to high
+            dm = reclaim & (free < min_free)
+            n = np.where(dm, np.minimum(min_free - free, fast_count), 0)
+            n = np.maximum(n, 0)
+            d_demand += n
+            fast_count -= n
+            free += n
+            pm_de += n
+            direct_total += n
+            events += dm  # one direct-reclaim event even when n == 0
+            km = reclaim & (free < low_free)
+            n = np.where(
+                km,
+                np.minimum(
+                    np.minimum(high_free - free, kswapd_batch), fast_count
+                ),
+                0,
+            )
+            n = np.maximum(n, 0)
+            d_demand += n
+            fast_count -= n
+            free += n
+            pm_de += n
+            headroom = free - min_free
+            fail = reclaim & (headroom <= 0)
+            pm_fail = np.where(fail, n_cand - done, pm_fail)
+            active &= ~fail
+        chunk = np.where(active, np.minimum(headroom, n_cand - done), 0)
+        done += chunk
+        free -= chunk
+        fast_count += chunk
+        active = active & (done < n_cand)
+    # final run_reclaim() — kswapd only
+    km = free < low_free
+    n = np.where(
+        km,
+        np.minimum(np.minimum(high_free - free, kswapd_batch), fast_count),
+        0,
+    )
+    n = np.maximum(n, 0)
+    d_demand += n
+    fast_count -= n
+    free += n
+    pm_de += n
+    return done, pm_de, pm_fail, direct_total, events, d_demand
+
+
+def _resolve_step_victims(
+    base_eff: np.ndarray,
+    base_ids: np.ndarray,
+    cand_eff: np.ndarray,
+    cand_ids: np.ndarray,
+    events: list,
+) -> tuple[int, np.ndarray]:
+    """Victim identities for a bulk step whose reclaim demand reaches into
+    the same step's promotions (the thrash regime).
+
+    The chunked loop interleaves promotion chunks with reclaim; each
+    reclaim demotes the lexicographically (effective heat, page id)
+    coldest *current* fast pages — a set that, under pressure, includes
+    candidates promoted by earlier chunks of the same step. Because the
+    ranking key is frozen for the whole interval, that interleaving is a
+    pure merge process between two key-sorted streams:
+
+    * ``base_ids``/``base_eff`` — the pre-step fast tier in ranking
+      order (only the coldest ``sum(d for _, d in events)`` entries are
+      ever consumed, so callers pass a window that long);
+    * the promoted candidates (``cand_ids``/``cand_eff``, in promotion
+      order), each entering the merge at its ``events`` availability
+      horizon — a candidate is demotable only by reclaims that ran after
+      its promotion chunk.
+
+    Per event the ``d`` globally-coldest available pages are a prefix of
+    each stream, found by an O(log d) boundary search; the candidate
+    stream is maintained as one key-sorted pending array re-partitioned
+    at each availability horizon. No per-page replay, no tier writes —
+    the caller commits both streams' victims in single array operations.
+
+    Returns ``(n_base, cand_taken)``: the step demotes
+    ``base_ids[:n_base]`` and ``cand_ids[cand_taken]`` (mask in
+    promotion order).
+    """
+    order = np.lexsort((cand_ids, cand_eff))
+    inv = np.empty(order.size, dtype=np.int64)
+    inv[order] = np.arange(order.size, dtype=np.int64)
+    s_eff = cand_eff[order]
+    s_ids = cand_ids[order]
+    taken = np.zeros(order.size, dtype=bool)  # by key-sorted position
+    pend = np.empty(0, dtype=np.int64)  # available, key-sorted positions
+    b = 0  # consumed prefix of the base stream
+    p_prev = 0
+    n_base = base_ids.size
+    for p, d in events:
+        if p > p_prev:
+            new = np.sort(inv[p_prev:p])
+            pend = np.insert(pend, np.searchsorted(pend, new), new)
+            p_prev = p
+        # split d = x base + y pending, prefix-wise in key order: binary
+        # search for the unique boundary (keys are distinct: ids tie-break)
+        lo = max(0, d - pend.size)
+        hi = min(d, n_base - b)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            j = pend[d - mid - 1]
+            if (s_eff[j], s_ids[j]) > (base_eff[b + mid], base_ids[b + mid]):
+                lo = mid + 1
+            else:
+                hi = mid
+        x = lo
+        y = d - x
+        if y:
+            taken[pend[:y]] = True
+            pend = pend[y:]
+        b += x
+    return b, taken[inv]
+
+
+class TieredPagePool:
+    """The control plane of one fast-memory size in a device sweep.
+
+    ``tier_row`` is this size's row of the sweep's stacked host tier array
+    (``UNALLOCATED``/``FAST``/``SLOW`` per page); the pool writes it only
+    through :meth:`place` and :meth:`_import_tier_stack`. ``hw_capacity``
+    is the fast tier's hardware capacity in pages; the effective size is
+    whatever the watermarks allow. ``kswapd_batch`` is the background
+    reclaim budget per invocation (default ``max(128, hw_capacity // 64)``,
+    as in the JAX package).
+    """
+
+    def __init__(
+        self,
+        tier_row: np.ndarray,
+        hw_capacity: int,
+        page_bytes: int = 4096,
+        kswapd_batch: int | None = None,
+    ) -> None:
+        if tier_row.ndim != 1 or tier_row.dtype != np.int8:
+            raise ValueError("tier_row must be a 1-D int8 array")
+        if tier_row.size <= 0 or hw_capacity <= 0:
+            raise ValueError("num_pages and hw_capacity must be positive")
+        self.num_pages = int(tier_row.size)
+        self.hw_capacity = int(hw_capacity)
+        self.page_bytes = int(page_bytes)
+        self.kswapd_batch = (
+            int(kswapd_batch)
+            if kswapd_batch is not None
+            else max(128, self.hw_capacity // 64)
+        )
+        self._tier = tier_row
+        # public read-only view: tier moves go through place()
+        self.tier = tier_row.view()
+        self.tier.flags.writeable = False
+        self.watermarks = Watermarks.for_size(self.hw_capacity, self.hw_capacity)
+        self.stats = PoolStats()
+        self._fast_used = int(np.count_nonzero(tier_row == _FAST))
+        self._rss_pages = int(np.count_nonzero(tier_row != _UNALLOC))
+
+    # ------------------------------------------------------------------ state
+    @property
+    def fast_used(self) -> int:
+        return self._fast_used
+
+    @property
+    def fast_free(self) -> int:
+        return self.hw_capacity - self._fast_used
+
+    @property
+    def rss_pages(self) -> int:
+        return self._rss_pages
+
+    @property
+    def effective_fm_size(self) -> int:
+        """Fast-memory size currently permitted by the watermarks."""
+        return self.hw_capacity - self.watermarks.low_free
+
+    def set_fm_size(self, new_fm_pages: int) -> None:
+        """Retune the fast-tier size via watermarks (paper Section 4)."""
+        self.watermarks = Watermarks.for_size(self.hw_capacity, new_fm_pages)
+
+    def place(self, pages: np.ndarray, tier: Tier) -> None:
+        """Explicitly move ``pages`` into ``tier`` (numactl/membind
+        analogue: the micro-benchmark places its slow array this way)."""
+        pages = np.unique(np.asarray(pages, dtype=np.int64))
+        if pages.size == 0:
+            return
+        was_alloc = self._tier[pages] != _UNALLOC
+        was_fast = int(np.count_nonzero(self._tier[pages] == _FAST))
+        self._tier[pages] = int(tier)
+        if tier == Tier.UNALLOCATED:
+            self._rss_pages -= int(np.count_nonzero(was_alloc))
+        else:
+            self._rss_pages += int(np.count_nonzero(~was_alloc))
+        self._fast_used += (pages.size if tier == Tier.FAST else 0) - was_fast
+
+    # ------------------------------------------------------ sweep bookkeeping
+    def _first_touch(self, n_new: int) -> int:
+        """Account ``n_new`` first-touched pages (the interval's new pages,
+        in access order): the first ``n_fast`` go fast while free pages stay
+        above the low watermark, the rest spill slow. Returns ``n_fast``;
+        the engine writes the tier rows on the device."""
+        budget = max(0, self.fast_free - self.watermarks.low_free)
+        n_fast = min(budget, int(n_new))
+        self.stats.alloc_fast += int(n_fast)
+        self.stats.alloc_slow += int(n_new - n_fast)
+        self._rss_pages += int(n_new)
+        self._fast_used += int(n_fast)
+        return n_fast
+
+    def _commit_step(
+        self, pm_pr: int, pm_de: int, direct_total: int, events: int,
+        d_demand: int,
+    ) -> None:
+        """Fold one policy step's schedule into the counters (what the JAX
+        package's bulk step books; pm_fail reaches the policy outcome only)."""
+        self._fast_used += int(pm_pr) - int(d_demand)
+        st = self.stats
+        st.pgdemote_direct += int(direct_total)
+        st.pgdemote_kswapd += int(pm_de) - int(direct_total)
+        st.direct_reclaim_events += int(events)
+        st.pgpromote_success += int(pm_pr)
+
+    def _schedule_events(self, n_cand: int) -> list:
+        """Re-run the scalar schedule recurrence on this pool's current
+        (pre-step) state to recover the per-reclaim availability horizons
+        consumed by :func:`_resolve_step_victims`. Pure integer work; only
+        paid on the thrash path, and must run before the step's commit.
+        """
+        wm = self.watermarks
+        events: list = []
+        _bulk_schedule(
+            self.fast_free,
+            self._fast_used,
+            wm.min_free,
+            wm.low_free,
+            wm.high_free,
+            self.kswapd_batch,
+            int(n_cand),
+            events_out=events,
+        )
+        return events
+
+    @staticmethod
+    def _export_tier_stack(pools) -> np.ndarray:
+        """The pools' tier rows as one stacked ``[n_sizes, rss]`` int8
+        array (a copy: the device transfer source)."""
+        if not pools:
+            raise ValueError("_export_tier_stack needs at least one pool")
+        num_pages = pools[0].num_pages
+        if any(p.num_pages != num_pages for p in pools):
+            raise ValueError("pools must share num_pages to stack tiers")
+        return np.stack([np.asarray(p.tier, dtype=np.int8) for p in pools])
+
+    @staticmethod
+    def _import_tier_stack(pools, tier_stack: np.ndarray) -> None:
+        """Write a stacked ``[n_sizes, rss]`` tier array back into the
+        pools' rows and recount each pool's occupancy counters."""
+        tier_stack = np.asarray(tier_stack, dtype=np.int8)
+        if tier_stack.shape != (len(pools), pools[0].num_pages if pools else 0):
+            raise ValueError(
+                f"tier stack shape {tier_stack.shape} does not match "
+                f"{len(pools)} pools x {pools[0].num_pages if pools else 0} pages"
+            )
+        for pool, row in zip(pools, tier_stack):
+            pool._tier[:] = row
+            pool._fast_used = int(np.count_nonzero(row == _FAST))
+            pool._rss_pages = int(np.count_nonzero(row != _UNALLOC))
