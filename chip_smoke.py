@@ -8,18 +8,33 @@ the CUDA toolkit::
 
 Phases, each of which must pass (any failure exits non-zero):
 
-1. build every CUDA source under ``src/repro_torch/csrc`` with nvcc;
-2. every kernel against its plain PyTorch version on the card, exactly,
-   over seeded inputs (ragged rows, zero and over-demand, strided rows,
-   the main path's full shape);
-3. the CPU lane == the CUDA lane, bit for bit, through the port's ``run``:
-   an untuned sweep and a tuned shrink on small thrash traces;
-4. the main path at full size through the entry points a user calls
-   (``repro_torch.sim.api.run``, ``repro_torch.core.tuner.build_database``):
-   profile sweep over 20 sizes, database build, TPP vs TPP+Tuna, with
-   the kernels' launch counts set to 0 just before and read just after;
-5. each kernel timed on the inputs the main path gave it (CUDA events,
-   median of repeated runs) beside its plain version and its bound.
+1. build every CUDA source under ``src/repro_torch/csrc`` with nvcc, all
+   at once;
+2. every kernel against its plain PyTorch version on the card over seeded
+   inputs: ``victim_partition`` and ``migrate_pages`` exactly (ragged rows,
+   over-demand, strided rows; device, pinned-host and mixed pools, pages
+   that are not a multiple of 16 bytes), ``strided_probe`` against float64
+   within its rounding bound, ``paged_decode_attention`` within a stated
+   tolerance (holes, partial pages, grouped heads, a fully masked row);
+3. the CPU lane == the CUDA lane, bit for bit: the sweep through ``run``
+   (an untuned sweep and a tuned shrink), and the tiered serving loop at
+   the demo's page counts and a narrow page (summary, history, tuner
+   decisions, watermark log, slot map, tiers, heat, both pools' bits);
+4. the sweep's main path at full size through the entry points a user
+   calls (``repro_torch.sim.api.run``, ``build_database``), with the
+   ``victim_partition`` count set to 0 just before and read just after;
+5. ``victim_partition`` timed on the main path's inputs;
+6. tiered serving at full width through the port's public classes
+   (``repro_torch.serving``): Qwen3-1.7B KV pages, a pinned host pool and
+   an HBM pool, 800 tuned rounds, with the ``migrate_pages`` count set to
+   0 just before and read just after; every page's content must survive;
+7. the serving kernels on the inputs the card sees: ``paged_decode_
+   attention`` over the last round's batch straight out of the HBM pool
+   (every layer group driven once, counted), ``migrate_pages`` on the
+   run's largest promotion and demotion, ``strided_probe`` over a 1 GiB HBM
+   pool and a 1 GiB pinned host pool (six cases driven once, counted);
+   CUDA events, median of repeated runs, beside the plain version, the
+   bound and a PyTorch yardstick where one call computes the same function.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -44,6 +59,27 @@ FULL_INTERVALS = 12
 SWEEP_FRACS = None  # set in main(): np.round(np.arange(1.0, 0.0, -0.05), 3)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ALU_OPS_PER_S = 67e12  # H100 SXM scalar (non-tensor-core) rate
+PCIE_BYTES_PER_S = 64e9  # PCIe Gen5 x16, one direction (the host tier)
+FP32_EPS = 2.0 ** -24  # unit roundoff of float32
+
+# Tiered serving, with the settings of examples/serve_tiered.py: 4,096
+# logical pages, 1,024 HBM slots, 400 sessions, batches of 16, 3 resumes a
+# round, tuned every 16 rounds, popularity drift every 250 of 800 rounds.
+SERVE_TOTAL_PAGES, SERVE_HBM_PAGES = 4096, 1024
+SERVE_ROUNDS, SERVE_DRIFT = 800, 250
+SERVE_BATCHER = dict(n_sessions=400, page_size=16, max_batch=16,
+                     resumes_per_round=3.0)
+# The page at full width is Qwen3-1.7B's KV (src/repro/configs/qwen3_1_7b.py:
+# 28 layers, 16 query heads, 8 KV heads, head_dim 128), 16 tokens a page, in
+# bfloat16: 1,835,008 bytes a page, 7.52 GB of host pool, 1.88 GB of HBM.
+QWEN3_1_7B_PAGE = dict(n_groups=28, page_size=16, kv_heads=8, head_dim=128)
+QWEN3_1_7B_QUERY_HEADS = 16
+# the CPU lane == CUDA lane check runs the demo's page counts at a narrow
+# page: the control plane never looks at the width
+NARROW_PAGE = dict(n_groups=1, page_size=16, kv_heads=1, head_dim=8)
+# the micro-benchmark probe: two 1 GiB pools of 4 KiB pages, one in HBM and
+# one in pinned host memory
+PROBE_PAGES, PROBE_PAGE_ELEMS = 262_144, 1024
 
 
 def log(msg: str) -> None:
@@ -358,6 +394,542 @@ def time_victim_partition(capture: dict) -> dict:
     }
 
 
+# ------------------------------------------------------------ phase 2, serving kernels
+def migrate_checks(dev) -> float:
+    """migrate_pages == its plain version, bit for bit: device->device,
+    pinned->device and device->pinned; bf16 and f32; pages that are not a
+    multiple of 16 bytes; one page and every slot. Returns the largest
+    absolute difference (must be 0)."""
+    import torch
+
+    from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
+
+    g = torch.Generator().manual_seed(12)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for page in ((7,), (3, 5), (1029,), (28, 2, 16, 8, 16)):
+            src = torch.randn((12,) + page, generator=g).to(dtype)
+            dst = torch.randn((12,) + page, generator=g).to(dtype)
+            for n in (1, 12):
+                di = torch.randperm(12, generator=g)[:n]
+                si = torch.randperm(12, generator=g)[:n]
+                want = migrate_pages_plain(dst.clone(), src, di, si)
+                for way in ("d2d", "h2d", "d2h"):
+                    s = src.pin_memory() if way == "h2d" else src.to(dev)
+                    d = dst.pin_memory() if way == "d2h" else dst.to(dev)
+                    migrate_pages(d, s, di, si)
+                    torch.cuda.synchronize()
+                    got = d.cpu()
+                    diff = float((got.float() - want.float()).abs().max())
+                    worst = max(worst, diff)
+                    check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+                          f"migrate_pages {way} {dtype} page {page} n={n} "
+                          f"differs from its plain version (max |diff| {diff})")
+    return worst
+
+
+def probe_tolerance(terms, ai_iters: int, n_pages: int, sm_count: int):
+    """The probe's float32 rounding bound against float64, per column:
+    each term is ai_iters fused multiply-adds of one sign (relative error
+    <= ai_iters u), and the kernel adds the terms in chains of at most
+    pages_per_segment + segments additions (relative error <= that many u
+    of the sum of |terms|), u = 2**-24."""
+    from repro_torch.kernels.strided_probe import segments
+
+    per_seg = segments(n_pages, PROBE_PAGE_ELEMS, sm_count) if n_pages else 1
+    n_seg = -(-n_pages // per_seg) if n_pages else 0
+    return (ai_iters + per_seg + n_seg + 2) * FP32_EPS * terms
+
+
+def probe_checks(dev) -> float:
+    """strided_probe against its float64 plain version within the derived
+    bound, for ai_iters in {0, 1, 7, 64}, an empty fast list and an empty
+    slow list, with the slow pool in pinned host memory. Returns the
+    largest absolute error."""
+    import torch
+
+    from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
+
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(13)
+    fast = torch.randn((512, PROBE_PAGE_ELEMS), generator=g).to(dev)
+    slow = torch.randn((512, PROBE_PAGE_ELEMS), generator=g).pin_memory()
+    worst = 0.0
+    for ai in (0, 1, 7, 64):
+        for nf, ns in ((40, 30), (0, 9), (9, 0), (3000, 1000)):
+            fi = torch.randint(0, 512, (nf,), generator=g)
+            si = torch.randint(0, 512, (ns,), generator=g)
+            got = strided_probe(fast, slow, fi, si, ai)
+            torch.cuda.synchronize()
+            want = strided_probe_plain(fast, slow, fi, si, ai, dtype=torch.float64)
+            terms = strided_probe_plain(fast.abs(), slow.abs(), fi, si, ai,
+                                        dtype=torch.float64)
+            err = (got.double() - want).abs()
+            worst = max(worst, float(err.max()))
+            check(bool((err <= probe_tolerance(terms, ai, nf + ns, sm)).all()),
+                  f"strided_probe ai={ai} nf={nf} ns={ns}: error "
+                  f"{float(err.max())} beyond its rounding bound")
+    return worst
+
+
+def attention_checks(dev) -> float:
+    """paged_decode_attention == its plain version within 2e-4 (float32)
+    or 2e-2 (bfloat16): holes, partial last pages, a length past the table,
+    rep in {1, 2, 4}, hd in {64, 128}, and a fully masked row (zeros).
+    Returns the largest absolute difference."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    g = torch.Generator().manual_seed(14)
+    worst = 0.0
+    B, KV, P, ps, ppseq = 6, 2, 40, 16, 5
+    for dtype in (torch.bfloat16, torch.float32):
+        for rep in (1, 2, 4):
+            for hd in (64, 128):
+                q = torch.randn((B, KV * rep, hd), generator=g).to(dtype).to(dev)
+                k = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(dev)
+                v = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(dev)
+                tbl = torch.randperm(P, generator=g)[: B * ppseq].view(B, ppseq)
+                tbl = tbl.to(torch.int32)
+                tbl[4, 0] = -1  # a hole inside the valid range
+                lens = torch.tensor([1, 35, 80, 0, 17, 99], dtype=torch.int32)
+                got = paged_decode_attention(q, k, v, tbl, lens)
+                torch.cuda.synchronize()
+                want = paged_decode_attention_plain(q, k, v, tbl.to(dev), lens.to(dev))
+                diff = float((got.float() - want.float()).abs().max())
+                worst = max(worst, diff)
+                tol = 2e-4 if dtype == torch.float32 else 2e-2
+                check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                      f"paged_decode_attention {dtype} rep={rep} hd={hd}: "
+                      f"max |diff| {diff} beyond {tol}")
+                check(not bool(got[3].any()), "a fully masked row is not zeros")
+    return worst
+
+
+# ------------------------------------------------------------ serving
+def demo_db(total_pages: int):
+    """The hand-built performance database of examples/serve_tiered.py."""
+    import numpy as np
+
+    from repro_torch.core.perfdb import PerfDB, PerfRecord
+    from repro_torch.core.telemetry import ConfigVector
+
+    grid = np.array([1.0, 0.85, 0.7, 0.55, 0.4, 0.25])
+    db = PerfDB()
+    for pacc in (200, 800, 2400):
+        for pm in (2, 16, 64):
+            loss = (pm / 32.0) * (1.0 / grid - 1.0) * 0.08
+            db.add(PerfRecord(
+                config=ConfigVector(pacc_f=pacc, pacc_s=pm, pm_de=pm, pm_pr=pm,
+                                    ai=1e6, rss_pages=total_pages, hot_thr=2,
+                                    num_threads=1),
+                fm_fracs=grid, times=1.0 + loss,
+            ))
+    db.build()
+    return db
+
+
+def build_server(page: dict, device, fill):
+    """The demo's server through the port's public classes; ``fill(kv)``
+    writes the host pool before the run."""
+    from dataclasses import replace
+
+    from repro_torch.core.tuner import TunaTuner, TunerConfig
+    from repro_torch.core.watermark import WatermarkController
+    from repro_torch.serving import (
+        ContinuousBatcher,
+        KVPageConfig,
+        TieredPagedKV,
+        TieredServer,
+    )
+    from repro_torch.sim.costmodel import H100_HOST_TIER
+
+    kv = TieredPagedKV(KVPageConfig(**page), total_pages=SERVE_TOTAL_PAGES,
+                       hbm_capacity=SERVE_HBM_PAGES, device=device)
+    fill(kv)
+    tuner = TunaTuner(
+        demo_db(SERVE_TOTAL_PAGES),
+        WatermarkController(kv.pool, max_step_frac=0.1),
+        TunerConfig(target_loss=0.05), peak_rss_pages=SERVE_HBM_PAGES,
+    )
+    hw = replace(H100_HOST_TIER, page_bytes=kv.cfg.bytes_per_page,
+                 access_bytes=kv.cfg.bytes_per_page)
+    return TieredServer(kv, ContinuousBatcher(**SERVE_BATCHER), tuner=tuner,
+                        tune_every=16, hw=hw)
+
+
+def serving_state(server) -> dict:
+    """Everything the serving loop leaves behind, as plain data."""
+    from dataclasses import asdict
+
+    import numpy as np
+    import torch
+
+    kv = server.kv
+    every = np.arange(kv.total_pages)
+    return {
+        "summary": server.summary(),
+        "history": [asdict(h) for h in server.history],
+        "decisions": [{**d.__dict__, "config": asdict(d.config)}
+                      for d in server.tuner.decisions],
+        "watermark_log": [e.__dict__ for e in server.tuner.controller.log],
+        "hbm_slot": kv.hbm_slot.tolist(),
+        "tier": np.asarray(kv.pool.tier).tolist(),
+        "heat": kv.pool.heat_of(every).tolist(),
+        "host": kv.host.view(torch.int16).cpu().numpy().tobytes(),
+        "hbm": kv.hbm.view(torch.int16).cpu().numpy().tobytes(),
+    }
+
+
+def serving_lanes_agree() -> dict:
+    """The serving loop on the CPU and on the card, bit for bit, at the
+    demo's page counts and a narrow page, tuned, with seeded host pools."""
+    import numpy as np
+    import torch
+
+    elems = (2 * NARROW_PAGE["n_groups"] * NARROW_PAGE["page_size"]
+             * NARROW_PAGE["kv_heads"] * NARROW_PAGE["head_dim"])
+    host = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (SERVE_TOTAL_PAGES, elems), dtype=np.float32)).to(torch.bfloat16)
+    out = {}
+    for device in ("cpu", "cuda"):
+        server = build_server(NARROW_PAGE, device, lambda kv: kv.host.copy_(host))
+        server.run(rounds=300, drift_every=100)
+        torch.cuda.synchronize()
+        out[device] = serving_state(server)
+    cpu, gpu = out["cpu"], out["cuda"]
+    for key in cpu:
+        check(cpu[key] == gpu[key], f"serving: CPU and CUDA lanes differ in {key}")
+    s = gpu["summary"]
+    check(s["migrated_in"] > 0 and s["migrated_out"] > 0,
+          "serving lanes: no page moved both ways")
+    check(len(gpu["watermark_log"]) > 0, "serving lanes: the tuner never moved")
+    return {"rounds": s["rounds"], "migrated_in": s["migrated_in"],
+            "migrated_out": s["migrated_out"],
+            "watermark_moves": len(gpu["watermark_log"])}
+
+
+def fingerprints(pages, weights):
+    """One int64 per page: the page's 16-bit words times seeded weights,
+    summed (two pages with other contents collide with chance ~2**-31)."""
+    import torch
+
+    bits = pages.view(torch.int16).to(torch.int32)
+    return (bits * weights).sum(dim=1, dtype=torch.int64)
+
+
+def serving_full_width(dev, capture: dict) -> dict:
+    """The demo at full width through the port's public classes: Qwen3-1.7B
+    KV pages, the host pool (7.52 GB, pinned) filled from a seed on the
+    card, 800 rounds, tuned. Checks that every page's content survives
+    wherever it sits. ``capture`` receives the largest promotion and
+    demotion batch, the last round's batch and the server."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import kv_cache
+    from repro_torch.kernels.page_migrate import migrate_pages
+
+    chunk = 64
+    gen = torch.Generator(device=dev).manual_seed(16)
+    elems = None
+    before = None
+    weights = None
+
+    def fill(kv):
+        nonlocal elems, before, weights
+        elems = kv.cfg.elems_per_page
+        weights = torch.randint(1, 2**15, (elems,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        fps = []
+        for a in range(0, kv.total_pages, chunk):
+            pages = torch.randn((min(chunk, kv.total_pages - a), elems),
+                                generator=gen, device=dev, dtype=torch.bfloat16)
+            fps.append(fingerprints(pages, weights))
+            kv.host[a:a + pages.shape[0]].copy_(pages)
+        torch.cuda.synchronize()
+        before = torch.cat(fps)
+
+    t = time.perf_counter()
+    server = build_server(QWEN3_1_7B_PAGE, None, fill)
+    setup_s = time.perf_counter() - t
+    kv = server.kv
+    check(kv.host.is_pinned() and kv.hbm.is_cuda, "serving pools are not on the tiers")
+
+    def recording(dst_pool, src_pool, dst_idx, src_idx):
+        n = len(dst_idx)
+        way = "promote" if src_pool is kv.host else "demote"
+        if n > capture.get(f"{way}_n", 0):
+            capture[f"{way}_n"] = n
+            capture[way] = (np.array(dst_idx), np.array(src_idx))
+        return migrate_pages(dst_pool, src_pool, dst_idx, src_idx)
+
+    last = {}
+    round_batch = server.batcher.round_batch
+
+    def recording_batch():
+        last["batch"] = round_batch()
+        return last["batch"]
+
+    kv_cache.migrate_pages = recording
+    server.batcher.round_batch = recording_batch
+    torch.cuda.synchronize()
+    migrate_pages.launches = 0
+    t = time.perf_counter()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+    ) as prof:
+        server.run(rounds=SERVE_ROUNDS, drift_every=SERVE_DRIFT)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = migrate_pages.launches
+    kv_cache.migrate_pages = migrate_pages
+    server.batcher.round_batch = round_batch
+    check(launches > 0, "the serving loop never launched migrate_pages")
+
+    device_us = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    migrate_us = sum(e.device_time_total for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "migrate_kernel" in e.name)
+
+    # --- every page's content survived, in host memory and, for resident
+    # pages, in its HBM slot
+    for a in range(0, kv.total_pages, chunk):
+        got = fingerprints(kv.host[a:a + chunk].to(dev), weights)
+        check(torch.equal(got, before[a:a + chunk]),
+              f"host pool pages {a}..{a + chunk} changed")
+    resident = np.flatnonzero(kv.hbm_slot >= 0)
+    for a in range(0, resident.size, chunk):
+        pages = resident[a:a + chunk]
+        slots = torch.as_tensor(kv.hbm_slot[pages], device=dev)
+        got = fingerprints(kv.hbm[slots], weights)
+        check(torch.equal(got, before[torch.as_tensor(pages, device=dev)]),
+              f"HBM slots of pages {pages[:4]}... do not hold their pages")
+
+    s = server.summary()
+    check(s["rounds"] == SERVE_ROUNDS and all(
+        np.isfinite(v) for v in s.values()), f"bad serving summary {s}")
+    check(s["migrated_in"] > 0 and s["migrated_out"] > 0,
+          "full-width serving moved no page both ways")
+    page_b = kv.cfg.bytes_per_page
+    moved_b = (s["migrated_in"] + s["migrated_out"]) * page_b
+    capture.update(server=server, last_batch=last["batch"])
+    return {
+        "page_bytes": page_b,
+        "host_pool_bytes": kv.host.numel() * kv.host.element_size(),
+        "hbm_pool_bytes": kv.hbm.numel() * kv.hbm.element_size(),
+        "setup_s": setup_s,
+        "rounds": SERVE_ROUNDS,
+        "wall_s": wall_s,
+        "wall_ms_per_round": wall_s * 1e3 / SERVE_ROUNDS,
+        "device_ms_per_round": device_us / 1e3 / SERVE_ROUNDS,
+        "device_busy_share": device_us / 1e6 / wall_s,
+        "migrate_kernel_ms_total": migrate_us / 1e3,
+        "pages_in": s["migrated_in"], "pages_out": s["migrated_out"],
+        "gb_in": s["migrated_in"] * page_b / 1e9,
+        "gb_out": s["migrated_out"] * page_b / 1e9,
+        "migrate_gb_per_s": moved_b / (migrate_us / 1e6) / 1e9 if migrate_us else None,
+        "largest_promote_batch": capture.get("promote_n", 0),
+        "largest_demote_batch": capture.get("demote_n", 0),
+        "watermark_moves": len(server.tuner.controller.log),
+        "migrate_pages_launches": launches,
+        "summary": s,
+    }
+
+
+def time_migrate(dev, capture: dict) -> dict:
+    """migrate_pages on the largest promotion (pinned host -> HBM) and
+    demotion (HBM -> pinned host) batches of the serving run, beside the
+    plain version and the PCIe bound; device -> device on the promotion's
+    slots beside ``index_copy_``. Run after the serving checks: it rewrites
+    those pages."""
+    import torch
+
+    from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
+
+    kv = capture["server"].kv
+    page_b = kv.cfg.bytes_per_page
+    out = {}
+    for way, dst_pool, src_pool in (("promote", kv.hbm, kv.host),
+                                    ("demote", kv.host, kv.hbm)):
+        if way not in capture:
+            continue
+        di, si = (torch.as_tensor(x, device=dev) for x in capture[way])
+        n = di.numel()
+        ms = cuda_ms(lambda: migrate_pages(dst_pool, src_pool, di, si), repeats=20)
+        plain_ms = cuda_ms(lambda: migrate_pages_plain(dst_pool, src_pool, di, si),
+                           repeats=5, warmup=1)
+        bound = n * page_b / PCIE_BYTES_PER_S * 1e3
+        out[way] = {"pages": n, "bytes": n * page_b, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "gb_per_s": n * page_b / ms / 1e6}
+    di = torch.as_tensor(capture["promote"][0], device=dev)
+    rows = kv.hbm[di].clone()
+    seq = torch.arange(di.numel(), device=dev)
+    d2d_ms = cuda_ms(lambda: migrate_pages(kv.hbm, rows, di, seq), repeats=20)
+    index_copy_ms = cuda_ms(lambda: kv.hbm.index_copy_(0, di, rows), repeats=20)
+    out["d2d"] = {"pages": di.numel(), "ms": d2d_ms, "index_copy_ms": index_copy_ms,
+                  "bound_ms": 2 * di.numel() * page_b / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
+def attention_on_last_batch(dev, capture: dict) -> dict:
+    """paged_decode_attention over the last round's batch, straight out of
+    the HBM pool: layer group g of every page viewed as K/V
+    [slots, 16 tokens, 8 KV heads, 128] (this script's view of a page as
+    [28 groups, K/V, 16, 8, 128]; the JAX package defines no in-page
+    layout), with 16 query heads. All 28 groups are driven once with the
+    launch count set to 0 before and read after; group 0 is checked and
+    timed beside the plain version, the K/V byte bound and
+    scaled_dot_product_attention over pre-gathered K/V (a yardstick only)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    kv = capture["server"].kv
+    batch = capture["last_batch"]
+    check(len(batch) > 0, "the last serving round scheduled no session")
+    for s in batch:  # what the next round would do first
+        kv.ensure_resident(np.asarray(s.pages))
+    batch = [s for s in batch if np.all(kv.hbm_slot[s.pages] >= 0)]
+    check(len(batch) > 0, "no session of the last batch is resident")
+    ppseq = max(len(s.pages) for s in batch)
+    tbl = np.full((len(batch), ppseq), -1, np.int32)
+    for b, s in enumerate(batch):
+        tbl[b, :len(s.pages)] = kv.hbm_slot[s.pages]
+    lens = np.array([s.tokens for s in batch], np.int32)
+    p = QWEN3_1_7B_PAGE
+    view = kv.hbm.view(kv.hbm.shape[0], p["n_groups"], 2, p["page_size"],
+                       p["kv_heads"], p["head_dim"])
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((len(batch), QWEN3_1_7B_QUERY_HEADS, p["head_dim"]),
+                    generator=gen, device=dev, dtype=torch.bfloat16)
+    tbl_d = torch.as_tensor(tbl, device=dev)
+    lens_d = torch.as_tensor(lens, device=dev)
+    torch.cuda.synchronize()
+    paged_decode_attention.launches = 0
+    outs = [paged_decode_attention(q, view[:, g, 0], view[:, g, 1], tbl_d, lens_d)
+            for g in range(p["n_groups"])]
+    torch.cuda.synchronize()
+    launches = paged_decode_attention.launches
+    check(launches == p["n_groups"], "paged_decode_attention was not driven")
+    k0, v0 = view[:, 0, 0], view[:, 0, 1]
+    want = paged_decode_attention_plain(q, k0, v0, tbl_d, lens_d)
+    err = float((outs[0].float() - want.float()).abs().max())
+    check(torch.allclose(outs[0].float(), want.float(), rtol=2e-2, atol=2e-2)
+          and all(bool(torch.isfinite(o).all()) for o in outs),
+          f"paged_decode_attention on the serving pool: max |diff| {err}")
+    ms = cuda_ms(lambda: paged_decode_attention(q, k0, v0, tbl_d, lens_d))
+    plain_ms = cuda_ms(lambda: paged_decode_attention_plain(q, k0, v0, tbl_d, lens_d))
+    # yardstick: one fused PyTorch attention call over K/V gathered densely
+    T = ppseq * p["page_size"]
+    safe = tbl_d.clamp(min=0).long()
+    kd = k0[safe].reshape(len(batch), T, p["kv_heads"], p["head_dim"]).transpose(1, 2)
+    vd = v0[safe].reshape(len(batch), T, p["kv_heads"], p["head_dim"]).transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None, :] < lens_d[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask, enable_gqa=True)
+
+    sdpa_err = float((sdpa()[:, :, 0].float() - want.float()).abs().max())
+    library_ms = cuda_ms(sdpa)
+    tokens = int(lens.sum())
+    kv_bytes = 2 * tokens * p["kv_heads"] * p["head_dim"] * 2
+    io_bytes = 2 * q.numel() * 2 + tbl.nbytes + lens.nbytes
+    bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * tokens * QWEN3_1_7B_QUERY_HEADS * p["head_dim"] / ALU_OPS_PER_S * 1e3
+    return {
+        "launches": launches, "max_abs_err": max(err, 0.0), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms, "sdpa_max_abs_diff": sdpa_err,
+        "batch": len(batch), "pages_per_seq": ppseq, "tokens": tokens,
+        "kv_bytes": kv_bytes,
+    }
+
+
+def probe_tiers(dev) -> dict:
+    """strided_probe over two 1 GiB pools of 4 KiB pages, one in HBM and
+    one in pinned host memory, in a seeded random page order: fast only,
+    slow only and half of each, at ai_iters 1 and 64. All six are driven
+    once with the launch count set to 0 before and read after, then each
+    is checked against the float64 plain version and timed. The per-tier
+    GB/s at ai_iters 1 is the micro-benchmark's reading of the two tiers."""
+    import torch
+
+    from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
+
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(18)
+    fast = torch.randn((PROBE_PAGES, PROBE_PAGE_ELEMS), generator=gen, device=dev)
+    slow = torch.empty((PROBE_PAGES, PROBE_PAGE_ELEMS), pin_memory=True)
+    for a in range(0, PROBE_PAGES, 16_384):
+        n = min(16_384, PROBE_PAGES - a)
+        slow[a:a + n].copy_(torch.randn((n, PROBE_PAGE_ELEMS), generator=gen,
+                                        device=dev))
+    order = torch.randperm(PROBE_PAGES, generator=torch.Generator().manual_seed(19))
+    half = PROBE_PAGES // 2
+    none = torch.empty(0, dtype=torch.int64)
+    mixes = {"fast": (order, none), "slow": (none, order),
+             "mixed": (order[:half], order[half:])}
+    cases = [(mix, ai) for ai in (1, 64) for mix in mixes]
+    idx = {mix: (fi.to(dev), si.to(dev)) for mix, (fi, si) in mixes.items()}
+    torch.cuda.synchronize()
+    strided_probe.launches = 0
+    outs = {(mix, ai): strided_probe(fast, slow, *idx[mix], ai) for mix, ai in cases}
+    torch.cuda.synchronize()
+    launches = strided_probe.launches
+    check(launches == len(cases), "strided_probe was not driven")
+    page_b = PROBE_PAGE_ELEMS * 4
+    rows = {}
+    worst = 0.0
+    fast_abs, slow_abs = fast.abs(), slow.abs()
+    for mix, ai in cases:
+        fi, si = mixes[mix]
+        want = strided_probe_plain(fast, slow, fi, si, ai, dtype=torch.float64)
+        terms = strided_probe_plain(fast_abs, slow_abs, fi, si, ai,
+                                    dtype=torch.float64)
+        err = (outs[mix, ai].double() - want).abs()
+        worst = max(worst, float(err.max()))
+        check(bool((err <= probe_tolerance(terms, ai, fi.numel() + si.numel(), sm)).all()),
+              f"strided_probe {mix} ai={ai}: error {float(err.max())} beyond its bound")
+        del want, terms
+        ms = cuda_ms(lambda: strided_probe(fast, slow, *idx[mix], ai), repeats=10)
+        fb, sb = fi.numel() * page_b, si.numel() * page_b
+        bytes_ms = max(fb / HBM_BYTES_PER_S, sb / PCIE_BYTES_PER_S) * 1e3
+        ops_ms = 2 * ai * (fi.numel() + si.numel()) * PROBE_PAGE_ELEMS / ALU_OPS_PER_S * 1e3
+        rows[f"{mix}_ai{ai}"] = {
+            "ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "gb_per_s": (fb + sb) / ms / 1e6, "max_abs_err": float(err.max()),
+        }
+    del fast_abs, slow_abs
+    fi, si = mixes["mixed"]
+    plain_ms = cuda_ms(lambda: strided_probe_plain(fast, slow, fi, si, 64),
+                       repeats=3, warmup=1)
+    main = rows["mixed_ai64"]
+    return {
+        "launches": launches, "max_abs_err": worst, "ms": main["ms"],
+        "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "hbm_gb_per_s": rows["fast_ai1"]["gb_per_s"],
+        "host_gb_per_s": rows["slow_ai1"]["gb_per_s"],
+        "cases": rows,
+    }
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch is missing next to this script; "
@@ -396,13 +968,20 @@ def main() -> int:
 
     t = time.perf_counter()
     worst = kernel_checks(dev)
-    log(f"== 2 kernels == plain versions, exact (max |diff| {worst}) "
-        f"in {time.perf_counter() - t:.2f} s")
+    migrate_err = migrate_checks(dev)
+    probe_err = probe_checks(dev)
+    attention_err = attention_checks(dev)
+    log(f"== 2 kernels == plain versions: victim_partition and migrate_pages "
+        f"exact (max |diff| {worst}, {migrate_err}), strided_probe within its "
+        f"float64 rounding bound (max |err| {probe_err}), "
+        f"paged_decode_attention within 2e-4 f32 / 2e-2 bf16 (max |diff| "
+        f"{attention_err}) in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     lanes = lanes_agree()
-    log(f"== 3 CPU lane == CUDA lane, bit for bit: {lanes} "
-        f"in {time.perf_counter() - t:.2f} s")
+    serving_lanes = serving_lanes_agree()
+    log(f"== 3 CPU lane == CUDA lane, bit for bit: sweep {lanes}, serving "
+        f"{serving_lanes} in {time.perf_counter() - t:.2f} s")
 
     capture: dict = {}
     victim_partition.launches = 0
@@ -417,6 +996,27 @@ def main() -> int:
 
     vp = time_victim_partition(capture)
     log(f"== 5 victim_partition on the main path's inputs: {json.dumps(vp)}")
+
+    serve_capture: dict = {}
+    t = time.perf_counter()
+    serving = serving_full_width(dev, serve_capture)
+    log(f"== 6 tiered serving at full width (Qwen3-1.7B KV pages, "
+        f"{SERVE_TOTAL_PAGES} pinned host pages, {SERVE_HBM_PAGES} HBM slots, "
+        f"{SERVE_ROUNDS} rounds) in {time.perf_counter() - t:.2f} s; every "
+        f"page's content survived")
+    log("   " + json.dumps(serving))
+
+    t = time.perf_counter()
+    pa = attention_on_last_batch(dev, serve_capture)
+    mig = time_migrate(dev, serve_capture)
+    probe = probe_tiers(dev)
+    log(f"== 7 serving kernels timed on the inputs the card sees in "
+        f"{time.perf_counter() - t:.2f} s")
+    log("   paged_decode_attention: " + json.dumps(pa))
+    log("   migrate_pages: " + json.dumps(mig))
+    log("   strided_probe: " + json.dumps(probe))
+
+    promote = mig["promote"]
     kernels = [{
         "name": "victim_partition",
         "route": "cuda",
@@ -430,6 +1030,38 @@ def main() -> int:
         "bound_by": vp["bound_by"],
         "library_ms": vp["library_ms"],
         "cumsum_ms": vp["cumsum_ms"],
+    }, {
+        "name": "migrate_pages",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/page_migrate.cu",
+        "replaces": "src/repro/kernels/page_migrate.py:44",
+        "launches": serving["migrate_pages_launches"],
+        "max_abs_err": migrate_err,
+        "ms": promote["ms"],
+        "plain_ms": promote["plain_ms"],
+        "bound_ms": promote["bound_ms"],
+        "bound_by": "bytes",
+        # no single PyTorch call copies pinned host pages into device slots;
+        # index_copy_ is timed device to device beside the kernel instead
+        "library_ms": None,
+        "pages": promote["pages"],
+        "d2d_ms": mig["d2d"]["ms"],
+        "d2d_index_copy_ms": mig["d2d"]["index_copy_ms"],
+    }, {
+        "name": "strided_probe",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/strided_probe.cu",
+        "replaces": "src/repro/kernels/strided_probe.py:73",
+        **{k: probe[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+        "case": "mixed, ai_iters 64",
+    }, {
+        "name": "paged_decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:113",
+        **{k: pa[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

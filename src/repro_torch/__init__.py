@@ -12,8 +12,12 @@ hand-written kernel or raises; on a CPU tensor it takes the kernel's plain
 PyTorch version, which is what the CPU tests compare against the JAX
 package.
 
-This slice ports the Tuna sweep loop: trace -> TPP policy step on the card
-(with the ``victim_partition`` CUDA kernel) -> cost model -> telemetry ->
+Ported so far: the Tuna sweep loop (trace -> TPP policy step on the card,
+with the ``victim_partition`` CUDA kernel -> cost model -> telemetry ->
 performance database -> tuner -> watermarks, through
-:func:`repro_torch.sim.api.run`.
+:func:`repro_torch.sim.api.run`), and the tiered KV serving loop
+(:mod:`repro_torch.serving`, HBM and pinned host pools, pages copied by the
+``migrate_pages`` kernel), with the ``strided_probe`` and
+``paged_decode_attention`` kernels behind their entry points in
+:mod:`repro_torch.kernels`.
 """

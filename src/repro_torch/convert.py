@@ -11,17 +11,24 @@ same inputs to both packages.
 * a performance database: records ``{"config": {ConfigVector fields},
   "fm_fracs", "times"}``;
 * a tuner configuration: the :class:`~repro_torch.core.tuner.TunerConfig`
-  fields.
+  fields;
+* a KV page configuration and a hardware tier profile: their dataclass
+  fields;
+* a page pool: a numpy array, whose bfloat16 (``ml_dtypes``, as the JAX
+  package's host pool holds it) crosses as its ``uint16`` bits.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.perfdb import PerfDB, PerfRecord
 from repro_torch.core.telemetry import ConfigVector
 from repro_torch.core.trace import IntervalAccess, Trace
 from repro_torch.core.tuner import TunerConfig
+from repro_torch.serving.kv_cache import KVPageConfig
+from repro_torch.sim.costmodel import HardwareProfile
 
 
 def trace_dict(trace) -> dict:
@@ -92,3 +99,35 @@ def perfdb_from_records(records) -> PerfDB:
 def tuner_config_from_dict(d: dict) -> TunerConfig:
     """A :class:`~repro_torch.core.tuner.TunerConfig` from its fields."""
     return TunerConfig(**d)
+
+
+def kv_page_config_from_dict(d: dict) -> KVPageConfig:
+    """A :class:`~repro_torch.serving.kv_cache.KVPageConfig` from its
+    fields (``dtype`` by name, e.g. ``"bfloat16"``)."""
+    return KVPageConfig(**d)
+
+
+def hardware_profile_from_dict(d: dict) -> HardwareProfile:
+    """A :class:`~repro_torch.sim.costmodel.HardwareProfile` from its
+    fields."""
+    return HardwareProfile(**d)
+
+
+def pool_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A page pool as a CPU tensor with the same bits. A bfloat16 array
+    (numpy has no bfloat16 of its own) is read through its ``uint16``
+    view."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def pool_bits(t: torch.Tensor) -> np.ndarray:
+    """The raw bits of a pool as a numpy array (``uint16`` for a 2-byte
+    dtype such as bfloat16, the array itself otherwise), for exact
+    comparison with the JAX package's pools."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+        return t.numpy().view(np.uint16)
+    return t.numpy()

@@ -108,3 +108,41 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """C function ``symbol`` of ``csrc/<name>.cu``'s library, typed. Pass
+    every pointer, and the stream, as ``ctypes.c_void_p``: an untyped
+    argument goes through ctypes as a 32-bit int and cuts a pointer."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def device_address(name: str, t) -> int:
+    """The address a kernel of ``csrc/<name>.cu`` dereferences for tensor
+    ``t``: its data pointer on the card, or, for a CPU tensor, the device
+    address of its pinned host memory, read through unified virtual
+    addressing. A CPU tensor that is not pinned, and mapped for the device,
+    raises: there is no staging copy behind a kernel."""
+    if t.device.type == "cuda":
+        return t.data_ptr()
+    query = function(name, f"{name}_host_device_ptr", [ctypes.c_void_p],
+                     ctypes.c_ulonglong)
+    addr = query(t.data_ptr())
+    if not addr:
+        raise ValueError(
+            f"{name}: a host operand must be pinned memory the device can "
+            "address (allocate it with pin_memory=True)"
+        )
+    return int(addr)
+
+
+def to_device(t, dev):
+    """Small host operand ``t`` (indices, lengths) on the card. The copy
+    goes through pinned memory, so it does not wait for the stream; the
+    pinned allocator keeps the buffer until the copy has run."""
+    if t.device.type == "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -69,14 +69,11 @@ def _launch(fast01: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
     )[:, :n_cols]
     if n_rows == 0 or n_cols == 0:
         return out
-    lib = _build.load("victim_partition")
-    fn = lib.victim_partition_launch
-    fn.argtypes = [
+    fn = _build.function("victim_partition", "victim_partition_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    ])
     with torch.cuda.device(fast01.device):
         stream = torch.cuda.current_stream(fast01.device).cuda_stream
         rc = fn(

@@ -80,6 +80,33 @@ OPTANE_LIKE = HardwareProfile(
     bw_slow_write=8e9,
 )
 
+# One H100 SXM with pinned host memory as the slow tier: the serving tier
+# of the port's tiered KV cache. Bandwidths and the compute rate are data
+# sheet figures, not measurements: bw_fast is HBM3's 3.35 TB/s and
+# ops_per_s the 989 TFLOP/s dense bf16 tensor-core rate (NVIDIA H100 SXM
+# data sheet); bw_slow is PCIe Gen5 x16's 64 GB/s per direction (PCI-SIG
+# Gen5 specification, as the H100 data sheet quotes it). The latencies, MLP
+# and per-page software costs are OPTANE_LIKE's (the paper testbed's
+# calibration); none of them was measured on this card. page_bytes and
+# access_bytes are a 4 KiB page consumed whole; a caller sets them to its
+# KV page with dataclasses.replace.
+H100_HOST_TIER = HardwareProfile(
+    name="h100_host_tier",
+    bw_fast=3.35e12,
+    bw_slow=64e9,
+    lat_fast=OPTANE_LIKE.lat_fast,
+    lat_slow=OPTANE_LIKE.lat_slow,
+    ops_per_s=989e12,
+    mlp=OPTANE_LIKE.mlp,
+    page_bytes=4096,
+    access_bytes=4096,  # KV pages are consumed whole by attention
+    migrate_page_overhead=OPTANE_LIKE.migrate_page_overhead,
+    direct_reclaim_stall=OPTANE_LIKE.direct_reclaim_stall,
+    promote_fail_penalty=OPTANE_LIKE.promote_fail_penalty,
+    llc_pages=0,  # no cache absorption for copied, whole-page KV reads
+)
+
+
 @dataclass(frozen=True)
 class IntervalCosts:
     t_compute: float

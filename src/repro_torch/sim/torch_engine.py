@@ -134,7 +134,7 @@ def _sweep_run_torch(
     tier_b = np.full((n_sizes, num_pages), _UNALLOC, dtype=np.int8)
     pools = []
     for s in range(n_sizes):
-        pool = TieredPagePool(
+        pool = TieredPagePool.for_slice(
             tier_b[s], hw_capacity=cap, page_bytes=hw.page_bytes,
             kswapd_batch=kswapd_batch,
         )

@@ -1,13 +1,23 @@
-"""Tiered page pool of the port: the host control plane of one size.
+"""Tiered page pool of the port: allocation state, heat and watermarks.
 
-Counterpart of :mod:`repro.tiering.page_pool`, cut to what the device sweep
-(:mod:`repro_torch.sim.torch_engine`) needs. The tier state of every swept
-fast-memory size lives on the device in the engine, as one stacked
-``[n_sizes, rss_pages]`` int8 array; each size keeps a slice pool here for
-its control plane: hardware capacity, kswapd budget, watermarks, the
-occupancy counters and the cumulative stats the profilers and tuners read.
-The slice pool's host ``tier`` row holds the placement before the run
-(:meth:`TieredPagePool.place`) and the device state imported after it.
+Counterpart of :mod:`repro.tiering.page_pool`, in two shapes:
+
+* the **standalone pool** (:class:`TieredPagePool` with the JAX package's
+  constructor): tiers, the swap-remove fast-tier index (:class:`_FastSet`),
+  lazily decayed heat (:class:`LazyHeat`), first-touch allocation and the
+  interval fold, copied line for line. The tiered KV cache
+  (:mod:`repro_torch.serving.kv_cache`) runs on it. It stays numpy: its
+  callers rank victims with an unstable ``np.argsort`` whose ties fall in
+  the order the fast index's swap-remove leaves, so the index and the sort
+  are the same code as in the JAX package.
+* the **slice pool** of the device sweep (:meth:`TieredPagePool.for_slice`).
+  The tier state of every swept fast-memory size lives on the device in
+  :mod:`repro_torch.sim.torch_engine`, as one stacked
+  ``[n_sizes, rss_pages]`` int8 array; each size keeps a slice pool here
+  for its control plane: hardware capacity, kswapd budget, watermarks, the
+  occupancy counters and the cumulative stats the profilers and tuners
+  read. Its host ``tier`` row holds the placement before the run
+  (:meth:`TieredPagePool.place`) and the device state imported after it.
 
 The TPP schedule recurrence (:func:`_bulk_schedule`,
 :func:`_bulk_schedule_batch`) and the thrash-regime victim resolver
@@ -69,6 +79,125 @@ class PoolStats:
 
     def snapshot(self) -> dict:
         return dict(self.__dict__)
+
+
+class LazyHeat:
+    """Decayed per-page touch counters with O(touched) maintenance.
+
+    Each page stores its value as of the last interval it was refreshed
+    (``stamp``); reads apply the pending decay steps as the same sequence
+    of scalar multiplies a dense ``heat * decay + touch`` performs (not
+    ``value * decay**k``, whose single rounding differs in the last ulp),
+    so values stay bit-identical to the dense update.
+    """
+
+    def __init__(self, num_pages: int, decay: float) -> None:
+        self.decay = float(decay)
+        self.value = np.zeros(num_pages, dtype=np.float64)
+        # number of end-of-interval decay steps incorporated into ``value``
+        self.stamp = np.zeros(num_pages, dtype=np.int64)
+        self.t = 0  # completed intervals
+
+    def _refresh(self, pages: np.ndarray) -> np.ndarray:
+        """Catch ``pages`` up to ``t`` decay steps, sequentially, in place.
+        Returns the refreshed values (a fresh array)."""
+        vals = self.value[pages]
+        if pages.size == 0:
+            return vals
+        k = self.t - self.stamp[pages]
+        kmax = int(k.max())
+        if kmax <= 0:
+            return vals
+        if kmax == 1 and int(k.min()) == 1:
+            vals = vals * self.decay  # the steady-state fast path
+        else:
+            live = (k > 0) & (vals != 0.0)
+            for step in range(1, kmax + 1):
+                if not np.any(live):
+                    break
+                vals = np.where(live, vals * self.decay, vals)
+                live = live & (k > step) & (vals != 0.0)
+        self.value[pages] = vals
+        self.stamp[pages] = self.t
+        return vals
+
+    def fold(self, pages: np.ndarray, touches: np.ndarray) -> None:
+        """End one interval: decay + fold ``touches`` for ``pages`` (the
+        interval's touched set; duplicates are harmless)."""
+        if pages.size:
+            vals = self._refresh(pages)
+            self.value[pages] = vals * self.decay + touches
+            self.stamp[pages] = self.t + 1
+        self.t += 1
+
+    def fold_dense(self, touches_dense: np.ndarray) -> None:
+        """Dense-interval fold: ``value = value * decay + touches_dense``,
+        re-synchronizing every stamp."""
+        stale = np.flatnonzero(self.stamp < self.t)
+        if stale.size:
+            self._refresh(stale)
+        self.value *= self.decay
+        self.value += touches_dense
+        self.stamp[:] = self.t + 1
+        self.t += 1
+
+    def current(self, pages: np.ndarray) -> np.ndarray:
+        """Heat as of the last completed interval. Reads without the
+        write-back when staleness is homogeneous (the every-interval-read
+        steady state), else refreshes in place."""
+        vals = self.value[pages]
+        if pages.size == 0:
+            return vals
+        k = self.t - self.stamp[pages]
+        kmax = int(k.max())
+        if kmax <= 0:
+            return vals
+        if kmax == 1 and int(k.min()) == 1:
+            return vals * self.decay
+        return self._refresh(pages)
+
+
+class _FastSet:
+    """Swap-remove membership index over the fast tier.
+
+    ``ids[:n]`` are the fast-tier page ids in arbitrary order; ``slot``
+    maps page id -> position in ``ids`` (-1 = not a member). Batch add and
+    remove are O(batch). The order it leaves is what
+    :meth:`TieredPagePool.fast_pages` returns, and callers' unstable sorts
+    break ties by it, so this is the JAX package's code unchanged.
+    """
+
+    def __init__(self, num_pages: int) -> None:
+        self.ids = np.empty(num_pages, dtype=np.int64)
+        self.slot = np.full(num_pages, -1, dtype=np.int64)
+        self.n = 0
+
+    def add(self, pages: np.ndarray) -> None:
+        k = pages.size
+        if k == 0:
+            return
+        self.ids[self.n : self.n + k] = pages
+        self.slot[pages] = np.arange(self.n, self.n + k, dtype=np.int64)
+        self.n += k
+
+    def remove(self, pages: np.ndarray) -> None:
+        k = pages.size
+        if k == 0:
+            return
+        slots = self.slot[pages]
+        self.slot[pages] = -1
+        n_new = self.n - k
+        # surviving members stranded in the tail move into freed head slots
+        tail = self.ids[n_new : self.n]
+        movers = tail[self.slot[tail] >= 0]
+        dest = slots[slots < n_new]
+        self.ids[dest] = movers
+        self.slot[movers] = dest
+        self.n = n_new
+
+    def members(self) -> np.ndarray:
+        """View of the current members (arbitrary order; do not mutate)."""
+        return self.ids[: self.n]
 
 
 def _bulk_schedule(
@@ -304,31 +433,75 @@ def _resolve_step_victims(
 
 
 class TieredPagePool:
-    """The control plane of one fast-memory size in a device sweep.
+    """Two-tier page pool with hotness tracking and watermark reclaim.
 
-    ``tier_row`` is this size's row of the sweep's stacked host tier array
-    (``UNALLOCATED``/``FAST``/``SLOW`` per page); the pool writes it only
-    through :meth:`place` and :meth:`_import_tier_stack`. ``hw_capacity``
-    is the fast tier's hardware capacity in pages; the effective size is
-    whatever the watermarks allow. ``kswapd_batch`` is the background
-    reclaim budget per invocation (default ``max(128, hw_capacity // 64)``,
-    as in the JAX package).
+    ``num_pages`` is the number of addressable pages, ``hw_capacity`` the
+    fast tier's hardware capacity in pages (the effective size is whatever
+    the watermarks allow), ``page_bytes`` the migration unit.
+    ``hotness_halflife`` is the number of intervals over which the decayed
+    touch counter halves; ``kswapd_batch`` the background reclaim budget
+    per invocation (default ``max(128, hw_capacity // 64)``). ``seed`` is
+    the JAX package's constructor argument; neither pool draws a random
+    number. ``tier`` is a read-only view: tier moves go through
+    :meth:`place`.
+
+    The device sweep's slice pools are built by :meth:`for_slice` instead;
+    they have no heat, no interval counters and no fast index.
     """
 
     def __init__(
         self,
+        num_pages: int,
+        hw_capacity: int,
+        page_bytes: int = 4096,
+        hotness_halflife: float = 2.0,
+        kswapd_batch: int | None = None,
+        seed: int = 0,
+    ) -> None:
+        if num_pages <= 0 or hw_capacity <= 0:
+            raise ValueError("num_pages and hw_capacity must be positive")
+        self._init_common(
+            np.full(int(num_pages), _UNALLOC, dtype=np.int8),
+            hw_capacity, page_bytes, kswapd_batch,
+        )
+        self.decay = 0.5 ** (1.0 / max(hotness_halflife, 1e-9))
+        self._heat = LazyHeat(self.num_pages, self.decay)
+        # cache-line accesses in the current interval (telemetry/cost)
+        self.interval_acc = np.zeros(self.num_pages, dtype=np.int64)
+        # fault-like touch events in the current interval (policy input)
+        self.interval_touch = np.zeros(self.num_pages, dtype=np.int64)
+        self._fast = _FastSet(self.num_pages)
+        self._touched: list[np.ndarray] = []  # page batches this interval
+
+    @classmethod
+    def for_slice(
+        cls,
         tier_row: np.ndarray,
         hw_capacity: int,
         page_bytes: int = 4096,
         kswapd_batch: int | None = None,
-    ) -> None:
+    ) -> "TieredPagePool":
+        """The control plane of one fast-memory size in a device sweep.
+
+        ``tier_row`` is this size's row of the sweep's stacked host tier
+        array (``UNALLOCATED``/``FAST``/``SLOW`` per page); the pool writes
+        it only through :meth:`place` and :meth:`_import_tier_stack`.
+        """
         if tier_row.ndim != 1 or tier_row.dtype != np.int8:
             raise ValueError("tier_row must be a 1-D int8 array")
         if tier_row.size <= 0 or hw_capacity <= 0:
             raise ValueError("num_pages and hw_capacity must be positive")
+        pool = cls.__new__(cls)
+        pool._init_common(tier_row, hw_capacity, page_bytes, kswapd_batch)
+        pool._fast = None  # the device sweep keeps the tiers; no index
+        return pool
+
+    def _init_common(self, tier_row, hw_capacity, page_bytes, kswapd_batch) -> None:
         self.num_pages = int(tier_row.size)
         self.hw_capacity = int(hw_capacity)
         self.page_bytes = int(page_bytes)
+        # kswapd demotion budget per reclaim invocation: background reclaim
+        # is rate-limited, which is what lets promotions outrun it and fail
         self.kswapd_batch = (
             int(kswapd_batch)
             if kswapd_batch is not None
@@ -365,9 +538,29 @@ class TieredPagePool:
         """Retune the fast-tier size via watermarks (paper Section 4)."""
         self.watermarks = Watermarks.for_size(self.hw_capacity, new_fm_pages)
 
+    def fast_pages(self) -> np.ndarray:
+        """Fast-tier page ids in the fast index's order (a copy)."""
+        return self._fast.members().copy()
+
+    def heat_of(self, pages: np.ndarray) -> np.ndarray:
+        """Decayed heat of ``pages`` as of the last completed interval."""
+        return self._heat.current(np.asarray(pages, dtype=np.int64))
+
+    def _sync_index(self, pages: np.ndarray) -> None:
+        """Reconcile the fast index + counter with ``tier`` for ``pages``
+        (must be unique). O(batch)."""
+        is_fast = self.tier[pages] == _FAST
+        in_set = self._fast.slot[pages] >= 0
+        rem = pages[in_set & ~is_fast]
+        add = pages[is_fast & ~in_set]
+        self._fast.remove(rem)
+        self._fast.add(add)
+        self._fast_used += add.size - rem.size
+
     def place(self, pages: np.ndarray, tier: Tier) -> None:
         """Explicitly move ``pages`` into ``tier`` (numactl/membind
-        analogue: the micro-benchmark places its slow array this way)."""
+        analogue: the micro-benchmark places its slow array this way, the
+        KV cache its promoted and demoted pages)."""
         pages = np.unique(np.asarray(pages, dtype=np.int64))
         if pages.size == 0:
             return
@@ -378,7 +571,91 @@ class TieredPagePool:
             self._rss_pages -= int(np.count_nonzero(was_alloc))
         else:
             self._rss_pages += int(np.count_nonzero(~was_alloc))
-        self._fast_used += (pages.size if tier == Tier.FAST else 0) - was_fast
+        if self._fast is None:
+            self._fast_used += (pages.size if tier == Tier.FAST else 0) - was_fast
+        else:
+            self._sync_index(pages)
+
+    # -------------------------------------------------------------- accesses
+    def apply_accesses(
+        self,
+        pages: np.ndarray,
+        counts: np.ndarray,
+        touches: np.ndarray | None = None,
+        touch_cap: int | None = None,
+    ) -> tuple[int, int, int, int, int, int]:
+        """Record an interval's page accesses; allocate on first touch.
+
+        ``counts`` are cache-line accesses (cost model); ``touches`` are
+        fault-like events the policy thresholds on; ``touch_cap`` saturates
+        the reported per-page touch count. Returns ``(pacc_fast_cl,
+        pacc_slow_cl, ptouch_fast, ptouch_slow, warm_pages_fast,
+        warm_touches_fast)``. First-touch allocation goes to the fast tier
+        while free pages remain above the low watermark, then spills slow.
+        """
+        pages = np.asarray(pages, dtype=np.int64)
+        counts = np.asarray(counts, dtype=np.int64)
+        touches = counts if touches is None else np.asarray(touches, dtype=np.int64)
+        if pages.size == 0:
+            return 0, 0, 0, 0, 0, 0
+        # first-touch allocation for unallocated pages, in access order
+        new_mask = self.tier[pages] == _UNALLOC
+        if np.any(new_mask):
+            self._first_touch_alloc(pages[new_mask])
+        self.interval_acc[pages] += counts
+        self.interval_touch[pages] += touches
+        self._touched.append(pages)
+        tiers = self.tier[pages]
+        fast_m = tiers == _FAST
+        slow_m = tiers == _SLOW
+        pacc_f = int(counts[fast_m].sum())
+        pacc_s = int(counts[slow_m].sum())
+        rep = touches if touch_cap is None else np.minimum(touches, touch_cap)
+        ptouch_f = int(rep[fast_m].sum())
+        ptouch_s = int(rep[slow_m].sum())
+        cap = touch_cap if touch_cap is not None else 4
+        warm_m = fast_m & (rep < cap)
+        warm_pages_f = int(np.count_nonzero(warm_m))
+        warm_touch_f = int(rep[warm_m].sum())
+        return (pacc_f, pacc_s, ptouch_f, ptouch_s, warm_pages_f, warm_touch_f)
+
+    def _first_touch_alloc(self, new_pages: np.ndarray) -> None:
+        """Allocate ``new_pages`` (currently UNALLOCATED, in access order):
+        fast while free pages stay above the low watermark, then slow."""
+        budget = max(0, self.fast_free - self.watermarks.low_free)
+        n_fast = min(budget, new_pages.size)
+        self._tier[new_pages[:n_fast]] = _FAST
+        self._tier[new_pages[n_fast:]] = _SLOW
+        self.stats.alloc_fast += int(n_fast)
+        self.stats.alloc_slow += int(new_pages.size - n_fast)
+        uniq = np.unique(new_pages)
+        self._rss_pages += int(uniq.size)
+        self._sync_index(uniq)
+
+    def end_interval(self) -> None:
+        """Fold the interval counters into the decayed heat and reset.
+        O(pages touched this interval), or dense once they reach an eighth
+        of the pool."""
+        n_touched = sum(batch.size for batch in self._touched)
+        if n_touched >= self.num_pages // 8:
+            self._heat.fold_dense(self.interval_touch)
+            self.interval_acc[:] = 0
+            self.interval_touch[:] = 0
+            self._touched.clear()
+        elif n_touched:
+            touched = (
+                self._touched[0]
+                if len(self._touched) == 1
+                else np.concatenate(self._touched)
+            )
+            # duplicate ids are fine: fancy assignment gathers the operands
+            # first, so a page folds once no matter how often it appears
+            self._heat.fold(touched, self.interval_touch[touched])
+            self.interval_acc[touched] = 0
+            self.interval_touch[touched] = 0
+            self._touched.clear()
+        else:
+            self._heat.fold(np.empty(0, np.int64), np.empty(0, np.int64))
 
     # ------------------------------------------------------ sweep bookkeeping
     def _first_touch(self, n_new: int) -> int:
