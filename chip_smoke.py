@@ -15,11 +15,17 @@ Phases, each of which must pass (any failure exits non-zero):
    over-demand, strided rows; device, pinned-host and mixed pools, pages
    that are not a multiple of 16 bytes), ``strided_probe`` against float64
    within its rounding bound, ``paged_decode_attention`` within a stated
-   tolerance (holes, partial pages, grouped heads, a fully masked row);
+   tolerance (holes, partial pages, grouped heads, a fully masked row),
+   ``flash_attention`` (causal and not, T > S, ragged tails, grouped heads,
+   rows that see no key) and ``wkv6`` (bf16 r, k, v beside f32 w) in
+   bfloat16 and float32 within stated tolerances;
 3. the CPU lane == the CUDA lane, bit for bit: the sweep through ``run``
    (an untuned sweep and a tuned shrink), and the tiered serving loop at
    the demo's page counts and a narrow page (summary, history, tuner
-   decisions, watermark log, slot map, tiers, heat, both pools' bits);
+   decisions, watermark log, slot map, tiers, heat, both pools' bits); and
+   Qwen3-1.7B and RWKV6-3B at full width and 2 layers in float32, the same
+   weights on both (forward logits, a short prefill's logits and state)
+   within a stated tolerance;
 4. the sweep's main path at full size through the entry points a user
    calls (``repro_torch.sim.api.run``, ``build_database``), with the
    ``victim_partition`` count set to 0 just before and read just after;
@@ -34,7 +40,20 @@ Phases, each of which must pass (any failure exits non-zero):
    run's largest promotion and demotion, ``strided_probe`` over a 1 GiB HBM
    pool and a 1 GiB pinned host pool (six cases driven once, counted);
    CUDA events, median of repeated runs, beside the plain version, the
-   bound and a PyTorch yardstick where one call computes the same function.
+   bound and a PyTorch yardstick where one call computes the same function;
+8. model serving at full width through ``repro_torch.launch.serve.
+   make_serve_fns``, Qwen3-1.7B then RWKV6-3B, each loaded from a seed on
+   the card, served and freed: 4 requests of 2,048-token prompts and 32
+   greedy new tokens. The prefill fn runs with the ``flash_attention`` and
+   ``wkv6`` counts set to 0 just before and read just after (28 and 32
+   launches); the kernel-path forward is held against the same forward
+   through the plain versions on the card, within twice the distance of the
+   plain bfloat16 forward from the plain float32 one; the decode loop fills
+   the state
+   (its last logits against the prefill fn's), then 32 decode steps;
+9. ``flash_attention`` and ``wkv6`` timed on the first layer's serving
+   inputs, beside the plain version, the bound and, for attention,
+   ``scaled_dot_product_attention`` (a yardstick the port never calls).
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -69,17 +88,42 @@ SERVE_TOTAL_PAGES, SERVE_HBM_PAGES = 4096, 1024
 SERVE_ROUNDS, SERVE_DRIFT = 800, 250
 SERVE_BATCHER = dict(n_sessions=400, page_size=16, max_batch=16,
                      resumes_per_round=3.0)
-# The page at full width is Qwen3-1.7B's KV (src/repro/configs/qwen3_1_7b.py:
+# The page at full width is Qwen3-1.7B's KV (repro_torch.configs.qwen3_1_7b:
 # 28 layers, 16 query heads, 8 KV heads, head_dim 128), 16 tokens a page, in
-# bfloat16: 1,835,008 bytes a page, 7.52 GB of host pool, 1.88 GB of HBM.
-QWEN3_1_7B_PAGE = dict(n_groups=28, page_size=16, kv_heads=8, head_dim=128)
-QWEN3_1_7B_QUERY_HEADS = 16
+# bfloat16: 1,835,008 bytes a page, 7.52 GB of host pool, 1.88 GB of HBM. Set
+# in main() from the port's config, once the package is importable.
+QWEN3_1_7B_PAGE: dict = {}
+QWEN3_1_7B_QUERY_HEADS = 0
 # the CPU lane == CUDA lane check runs the demo's page counts at a narrow
 # page: the control plane never looks at the width
 NARROW_PAGE = dict(n_groups=1, page_size=16, kv_heads=1, head_dim=8)
 # the micro-benchmark probe: two 1 GiB pools of 4 KiB pages, one in HBM and
 # one in pinned host memory
 PROBE_PAGES, PROBE_PAGE_ELEMS = 262_144, 1024
+# Model serving at full width: both families, 4 requests of 2,048-token
+# prompts and 32 greedy new tokens each, weights drawn from a seed on the card
+MODEL_FAMILIES = ("qwen3-1.7b", "rwkv6-3b")
+SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
+PROFILED_STEPS = 4  # decode steps read by the profiler; the rest are timed
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# The forward through the kernels is held against the same forward through
+# their plain versions on the card, in bfloat16, by the relative L2 error of
+# the logits. The two paths round each attention / WKV output to bfloat16 at
+# other points, and the random-weight models amplify such one-ulp
+# differences layer by layer (at full width on an H100 80GB HBM3: 0.020 for
+# Qwen3-1.7B, 0.058 for RWKV6-3B), so no fixed bound follows from the unit
+# roundoff. The tolerance is the model's own bfloat16 error instead, e, the
+# distance of the plain bfloat16 forward from the plain float32 forward on
+# the same weights (0.019 and 0.086 there): two bfloat16 paths that each
+# sit e from float32 in unrelated directions sit about sqrt(2) e apart, so
+# the kernel path must sit within MODEL_PATH_FACTOR * e of the plain path.
+# A wrong mask or head mapping gives an error of order 1, far past it.
+MODEL_PATH_FACTOR = 2.0
+# CPU lane vs CUDA lane at full width and 2 layers, in float32: other
+# summation orders on the two devices (cuBLAS in full float32, TF32 off).
+# On an H100 80GB HBM3 the logits (about 5.5) differ by 8e-6 (Qwen3-1.7B)
+# and 3.5e-4 (RWKV6-3B), so 1e-3 on rtol and atol
+LANE_LAYERS, LANE_BATCH, LANE_LEN, LANE_TOL = 2, 2, 64, 1e-3
 
 
 def log(msg: str) -> None:
@@ -930,6 +974,414 @@ def probe_tiers(dev) -> dict:
     }
 
 
+# ------------------------------------------------------------ phase 2, model kernels
+def flash_checks(dev) -> float:
+    """flash_attention == its plain version within 2e-4 (float32) or 2e-2
+    (bfloat16): causal and not, T > S, ragged tails, grouped heads, hd in
+    {16, 32, 64, 128}, and rows that see no key (S > T, zeros in both).
+    Returns the largest absolute difference."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator().manual_seed(21)
+    worst = 0.0
+    cases = [  # B, S, T, H, KV, hd, causal
+        (2, 128, 128, 4, 2, 64, True), (1, 100, 100, 8, 2, 128, True),
+        (1, 64, 192, 8, 2, 128, False), (1, 33, 65, 2, 1, 64, True),
+        (2, 48, 20, 4, 2, 16, True), (1, 70, 131, 16, 8, 128, False),
+        (1, 257, 257, 16, 8, 128, True), (2, 40, 40, 4, 4, 32, True),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, T, H, KV, hd, causal in cases:
+            q = torch.randn((B, S, H, hd), generator=g).to(dtype).to(dev)
+            k = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(dev)
+            v = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(dev)
+            got = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, causal=causal)
+            diff = float((got.float() - want.float()).abs().max())
+            worst = max(worst, diff)
+            tol = 2e-4 if dtype == torch.float32 else 2e-2
+            check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                  f"flash_attention {dtype} {(B, S, T, H, KV, hd, causal)}: "
+                  f"max |diff| {diff} beyond {tol}")
+            if causal and S > T:
+                check(not bool(got[:, : S - T].any()), "rows with no key are not zeros")
+    return worst
+
+
+def wkv6_checks(dev) -> float:
+    """wkv6 == its plain version: o within 3e-4 (float32 r, k, v) or 2e-2
+    (bfloat16 r, k, v beside float32 w, as the model passes them), the
+    float32 state within 3e-4; S not a multiple of the kernel's 16-token
+    chunk, hd in {16, 32, 64, 128}. Returns the largest absolute
+    difference."""
+    import torch
+
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+
+    g = torch.Generator().manual_seed(22)
+    worst = 0.0
+    cases = [  # B, S, H, hd, dtype of r, k, v
+        (2, 64, 2, 32, torch.float32), (1, 100, 4, 64, torch.float32),
+        (2, 32, 2, 16, torch.float32), (1, 17, 2, 128, torch.float32),
+        (2, 37, 3, 64, torch.bfloat16), (1, 300, 40, 64, torch.bfloat16),
+    ]
+    for B, S, H, hd, dtype in cases:
+        r, k, v = ((torch.randn((B, S, H, hd), generator=g) * 0.5).to(dtype).to(dev)
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn((B, S, H, hd), generator=g) * 0.5 - 4.0)).to(dev)
+        u = (torch.randn((H, hd), generator=g) * 0.3).to(dev)
+        o, st = wkv6(r, k, v, w, u)
+        torch.cuda.synchronize()
+        o_want, st_want = wkv6_plain(r, k, v, w, u)
+        tol = 3e-4 if dtype == torch.float32 else 2e-2
+        d_o = float((o.float() - o_want.float()).abs().max())
+        d_s = float((st - st_want).abs().max())
+        worst = max(worst, d_o, d_s)
+        check(torch.allclose(o.float(), o_want.float(), rtol=tol, atol=tol)
+              and torch.allclose(st, st_want, rtol=3e-4, atol=3e-4),
+              f"wkv6 {dtype} {(B, S, H, hd)}: max |diff| o {d_o}, state {d_s}")
+    return worst
+
+
+# ------------------------------------------------------------ phase 3, models
+def model_lanes_agree(dev) -> dict:
+    """Each family at full width and 2 layers, in float32, the same weights
+    (drawn on the CPU from a seed) on the CPU and on the card: the forward's
+    logits and a 4-token prefill's logits and decode state within
+    LANE_TOL."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_decode_state, init_model, prefill
+
+    out = {}
+    for name in MODEL_FAMILIES:
+        cfg = replace(get_config(name), num_layers=LANE_LAYERS,
+                      param_dtype="float32", compute_dtype="float32")
+        params = init_model(cfg, generator=torch.Generator().manual_seed(23), device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (LANE_BATCH, LANE_LEN),
+                               generator=torch.Generator().manual_seed(24))
+        lanes = {}
+        for lane, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            p = params if lane == "cpu" else _to(params, device)
+            t = tokens.to(device)
+            logits, _ = forward(p, cfg, t)
+            state = init_decode_state(cfg, LANE_BATCH, 8, device=device)
+            last, state = prefill(p, cfg, t[:, :4], state)
+            lanes[lane] = (logits.cpu(), last.cpu(), {k: v.cpu() for k, v in state.items()})
+            del p
+        torch.cuda.synchronize()
+        (lc, pc, sc), (lg, pg, sg) = lanes["cpu"], lanes["cuda"]
+        diffs = {"logits": float((lc - lg).abs().max()),
+                 "prefill_logits": float((pc - pg).abs().max()),
+                 **{k: float((sc[k] - sg[k]).abs().max()) for k in sc}}
+        ok = torch.allclose(lc, lg, rtol=LANE_TOL, atol=LANE_TOL) and torch.allclose(
+            pc, pg, rtol=LANE_TOL, atol=LANE_TOL) and all(
+            torch.allclose(sc[k], sg[k], rtol=LANE_TOL, atol=LANE_TOL) for k in sc)
+        check(ok, f"{name}: CPU and CUDA lanes differ beyond {LANE_TOL}: {diffs}")
+        out[name] = {"max_abs_diff": diffs, "logits_max_abs": float(lc.abs().max())}
+        del params, lanes
+    return out
+
+
+def _to(params, where):
+    """A copy of a parameter tree on a device or in a dtype."""
+    if isinstance(params, dict):
+        return {k: _to(v, where) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_to(v, where) for v in params]
+    return params.to(where)
+
+
+# ------------------------------------------------------------ model serving
+def _device_us(prof) -> float:
+    import torch
+
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _logit_agreement(a, b) -> dict:
+    """max |a - b|, the relative L2 error of a against b and the share of
+    positions whose top-1 token agrees, batch row by batch row (the full
+    logits of a 4 x 2,048 prompt are 2.5 GB in bfloat16)."""
+    import torch
+
+    worst, err2, ref2, same, n = 0.0, 0.0, 0.0, 0, 0
+    for i in range(a.shape[0]):
+        x, y = a[i].float(), b[i].float()
+        worst = max(worst, float((x - y).abs().max()))
+        err2 += float(((x - y) ** 2).sum())
+        ref2 += float((y ** 2).sum())
+        same += int((x.argmax(-1) == y.argmax(-1)).sum())
+        n += x.shape[0] * (x.shape[1] if x.dim() > 2 else 1)
+        del x, y
+    torch.cuda.synchronize()
+    return {"max_abs_diff": worst, "rel_l2": (err2 / ref2) ** 0.5 if ref2 else 0.0,
+            "top1_agree": same / n}
+
+
+def serve_model(name: str, dev, capture: dict) -> dict:
+    """One family at full width through repro_torch.launch.serve: 4 prompts
+    of 2,048 tokens prefilled (the kernel counts set to 0 just before the
+    counted call and read just after), the kernel-path forward held against
+    the plain-path forward on the card, the decode state filled by the
+    decode loop (``prefill``), then 32 greedy decode steps. ``capture``
+    receives the first layer's kernel inputs."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    from repro_torch.launch.serve import make_serve_fns
+    from repro_torch.models import forward, init_model, param_count, prefill
+
+    cfg = get_config(name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = init_model(cfg, generator=gen, device=None)
+    fns = make_serve_fns(cfg, SERVE_BATCH, PROMPT_LEN + NEW_TOKENS)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_all
+
+    def recording(kernel, key):
+        def call(*args, **kw):
+            if key not in capture:
+                capture[key] = ([a.clone() for a in args], kw)
+            return kernel(*args, **kw)
+        return call
+
+    # 1. the prefill fn through the kernels, counted; then once under the
+    # profiler (device time) and once timed (wall: the profiler slows the host)
+    ops.attention = recording(flash_attention, "flash_attention")
+    ops.wkv6 = recording(wkv6, "wkv6")
+    flash_attention.launches = 0
+    wkv6.launches = 0
+    t = time.perf_counter()
+    first = fns["prefill"](params, tokens)
+    torch.cuda.synchronize()
+    prefill_cold_s = time.perf_counter() - t
+    launches = {"flash_attention": flash_attention.launches, "wkv6": wkv6.launches}
+    ops.attention, ops.wkv6 = flash_attention, wkv6
+    n_attn = sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
+    n_rwkv = sum(k == "rwkv" for k in cfg.block_pattern) * cfg.num_groups
+    check(launches == {"flash_attention": n_attn, "wkv6": n_rwkv},
+          f"{name}: prefill launched {launches}, want {n_attn} flash_attention "
+          f"and {n_rwkv} wkv6")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fns["prefill"](params, tokens)
+        torch.cuda.synchronize()
+    prefill_device_ms = _device_us(prof) / 1e3
+    kernel_device_ms = sum(e.device_time_total for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and ("flash_kernel" in e.name or "wkv6_kernel" in e.name)) / 1e3
+    del prof
+    t = time.perf_counter()
+    again = fns["prefill"](params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    check(bool(torch.isfinite(first).all())
+          and first.shape == (SERVE_BATCH, 1, cfg.vocab_size),
+          f"{name}: prefill logits not finite or of the wrong shape")
+    repeat_diff = float((first.float() - again.float()).abs().max())
+    del again
+
+    # 2. the same forward through the plain versions on the card, in
+    # bfloat16 and, on float32 copies of the weights, in float32
+    logits_k, _ = forward(params, cfg, tokens)
+    ops.attention, ops.wkv6 = flash_attention_plain, wkv6_plain
+    t = time.perf_counter()
+    logits_p, _ = forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    plain_forward_s = time.perf_counter() - t
+    params32 = _to(params, torch.float32)
+    logits_32, _ = forward(params32, replace(cfg, param_dtype="float32",
+                                             compute_dtype="float32"), tokens)
+    del params32
+    ops.attention, ops.wkv6 = flash_attention, wkv6
+    path = _logit_agreement(logits_k, logits_p)
+    kernel_vs_f32 = _logit_agreement(logits_k, logits_32)
+    plain_vs_f32 = _logit_agreement(logits_p, logits_32)
+    check(path["rel_l2"] <= MODEL_PATH_FACTOR * plain_vs_f32["rel_l2"],
+          f"{name}: kernel path vs plain path on the card {path} beyond "
+          f"{MODEL_PATH_FACTOR} x the bfloat16 plain path vs float32 {plain_vs_f32}")
+    del logits_k, logits_p, logits_32
+
+    # 3. the decode state filled by the decode loop
+    state = fns["init_state"]()
+    t = time.perf_counter()
+    last, state = prefill(params, cfg, tokens, state)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t
+    fill = _logit_agreement(last, first)
+    check(bool(torch.isfinite(last).all()), f"{name}: decode-loop prefill not finite")
+
+    # 4. 32 greedy decode steps: the first PROFILED_STEPS under the profiler
+    # (device time), the rest timed (wall)
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    new = [tok]
+
+    def step(i):
+        nonlocal tok, logits, state
+        logits, state = fns["decode"](params, state, tok, PROMPT_LEN + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        new.append(tok)
+
+    logits = None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILED_STEPS):
+            step(i)
+        torch.cuda.synchronize()
+    decode_device_ms = _device_us(prof) / 1e3 / PROFILED_STEPS
+    del prof
+    t = time.perf_counter()
+    for i in range(PROFILED_STEPS, NEW_TOKENS):
+        step(i)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / (NEW_TOKENS - PROFILED_STEPS)
+    out_tokens = torch.cat(new, dim=1)
+    check(bool(torch.isfinite(logits).all())
+          and bool(((out_tokens >= 0) & (out_tokens < cfg.vocab_size)).all()),
+          f"{name}: decode gave non-finite logits or bad tokens")
+    result = {
+        "params": param_count(params),
+        "requests": SERVE_BATCH, "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS,
+        "init_s": init_s,
+        "prefill_cold_s": prefill_cold_s,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": SERVE_BATCH * PROMPT_LEN / prefill_s,
+        "prefill_device_ms": prefill_device_ms,
+        "prefill_device_busy_share": prefill_device_ms / 1e3 / prefill_s,
+        "prefill_kernel_device_ms": kernel_device_ms,
+        "prefill_repeat_max_abs_diff": repeat_diff,
+        "launches": launches,
+        "kernel_vs_plain_path": path,
+        "kernel_path_vs_f32": kernel_vs_f32,
+        "plain_path_vs_f32": plain_vs_f32,
+        "plain_forward_s": plain_forward_s,
+        "decode_loop_prefill_s": fill_s,
+        "decode_loop_vs_forward_last_logits": fill,
+        "decode_ms_per_step": decode_ms,
+        "decode_device_ms_per_step": decode_device_ms,
+        "decode_device_busy_share": decode_device_ms / decode_ms,
+        "decode_tokens_per_s": SERVE_BATCH * 1e3 / decode_ms,
+        "decode_loop_prefill_ms_per_step": fill_s * 1e3 / PROMPT_LEN,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "wall_s": time.perf_counter() - t_all,
+    }
+    del params, state, first, last, logits, tokens
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _visible_pairs(S: int, T: int, causal: bool) -> int:
+    """(query, key) pairs a (batch, head) attends over: with right-aligned
+    causal queries, query s sees min(T, max(0, s + T - S + 1)) keys."""
+    if not causal:
+        return S * T
+    return sum(min(T, max(0, s + T - S + 1)) for s in range(S))
+
+
+def time_flash(capture: dict) -> dict:
+    """flash_attention on the first Qwen3-1.7B layer's prefill inputs,
+    beside its plain version, its bound and scaled_dot_product_attention
+    (a yardstick only; the port never calls it)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    (q, k, v), kw = capture["flash_attention"]
+    causal = kw.get("causal", True)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2),
+          f"flash_attention on the serving inputs: max |diff| {err}")
+    del got, want
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), repeats=20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                       repeats=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    sdpa_diff = float((sdpa().transpose(1, 2).float()
+                       - flash_attention_plain(q, k, v, causal=causal).float()).abs().max())
+    library_ms = cuda_ms(sdpa, repeats=20)
+    flops = 4 * B * H * hd * _visible_pairs(S, T, causal)
+    io_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms, "sdpa_max_abs_diff": sdpa_diff,
+        "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, "causal": causal},
+        "gflop": flops / 1e9, "bytes": io_bytes,
+        "tflop_per_s": flops / ms / 1e9,
+    }
+
+
+def time_wkv6(capture: dict) -> dict:
+    """wkv6 on the first RWKV6-3B layer's prefill inputs, beside its plain
+    version and its bound (no PyTorch call computes the recurrence)."""
+    import torch
+
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+
+    (r, k, v, w, u), _ = capture["wkv6"]
+    B, S, H, hd = r.shape
+    o, st = wkv6(r, k, v, w, u)
+    o_want, st_want = wkv6_plain(r, k, v, w, u)
+    err = max(float((o.float() - o_want.float()).abs().max()),
+              float((st - st_want).abs().max()))
+    check(torch.allclose(o.float(), o_want.float(), rtol=2e-2, atol=2e-2)
+          and torch.allclose(st, st_want, rtol=3e-4, atol=3e-4),
+          f"wkv6 on the serving inputs: max |diff| {err}")
+    del o, st, o_want, st_want
+    ms = cuda_ms(lambda: wkv6(r, k, v, w, u), repeats=20)
+    plain_ms = cuda_ms(lambda: wkv6_plain(r, k, v, w, u), repeats=3, warmup=1)
+    # a multiply and two FMAs per (token, i, j): 5 flops, float32 outside
+    # the tensor cores
+    flops = 5 * B * S * H * hd * hd
+    io_bytes = (sum(x.numel() * x.element_size() for x in (r, k, v, w, u))
+                + r.numel() * r.element_size() + B * H * hd * hd * 4)
+    ops_ms = flops / ALU_OPS_PER_S * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        "shape": {"B": B, "S": S, "H": H, "hd": hd, "rkv_dtype": str(r.dtype)},
+        "gflop": flops / 1e9, "bytes": io_bytes,
+    }
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch is missing next to this script; "
@@ -942,8 +1394,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    global SWEEP_FRACS
+    global SWEEP_FRACS, QWEN3_1_7B_PAGE, QWEN3_1_7B_QUERY_HEADS
     SWEEP_FRACS = tuple(float(f) for f in np.round(np.arange(1.0, 0.0, -0.05), 3))
+    from repro_torch.configs import get_config
+
+    qwen3 = get_config("qwen3-1.7b")
+    QWEN3_1_7B_PAGE = dict(n_groups=qwen3.num_layers, page_size=16,
+                           kv_heads=qwen3.num_kv_heads, head_dim=qwen3.head_dim)
+    QWEN3_1_7B_QUERY_HEADS = qwen3.num_heads
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -971,17 +1429,24 @@ def main() -> int:
     migrate_err = migrate_checks(dev)
     probe_err = probe_checks(dev)
     attention_err = attention_checks(dev)
+    flash_err = flash_checks(dev)
+    wkv6_err = wkv6_checks(dev)
     log(f"== 2 kernels == plain versions: victim_partition and migrate_pages "
         f"exact (max |diff| {worst}, {migrate_err}), strided_probe within its "
         f"float64 rounding bound (max |err| {probe_err}), "
         f"paged_decode_attention within 2e-4 f32 / 2e-2 bf16 (max |diff| "
-        f"{attention_err}) in {time.perf_counter() - t:.2f} s")
+        f"{attention_err}), flash_attention within 2e-4 f32 / 2e-2 bf16 (max "
+        f"|diff| {flash_err}), wkv6 within 3e-4 f32 / 2e-2 bf16 (max |diff| "
+        f"{wkv6_err}) in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     lanes = lanes_agree()
     serving_lanes = serving_lanes_agree()
+    model_lanes = model_lanes_agree(dev)
     log(f"== 3 CPU lane == CUDA lane, bit for bit: sweep {lanes}, serving "
-        f"{serving_lanes} in {time.perf_counter() - t:.2f} s")
+        f"{serving_lanes}; models at full width, {LANE_LAYERS} layers, float32, "
+        f"within {LANE_TOL}: {json.dumps(model_lanes)} in "
+        f"{time.perf_counter() - t:.2f} s")
 
     capture: dict = {}
     victim_partition.launches = 0
@@ -1015,6 +1480,24 @@ def main() -> int:
     log("   paged_decode_attention: " + json.dumps(pa))
     log("   migrate_pages: " + json.dumps(mig))
     log("   strided_probe: " + json.dumps(probe))
+
+    model_capture: dict = {}
+    served = {}
+    for name in MODEL_FAMILIES:
+        t = time.perf_counter()
+        served[name] = serve_model(name, dev, model_capture)
+        log(f"== 8 model serving at full width, {name}: {SERVE_BATCH} requests of "
+            f"{PROMPT_LEN} + {NEW_TOKENS} tokens in {time.perf_counter() - t:.2f} s")
+        log("   " + json.dumps(served[name]))
+
+    t = time.perf_counter()
+    fa = time_flash(model_capture)
+    wk = time_wkv6(model_capture)
+    del model_capture
+    log(f"== 9 model kernels timed on the first layer's serving inputs in "
+        f"{time.perf_counter() - t:.2f} s")
+    log("   flash_attention: " + json.dumps(fa))
+    log("   wkv6: " + json.dumps(wk))
 
     promote = mig["promote"]
     kernels = [{
@@ -1062,6 +1545,22 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_attention.py:113",
         **{k: pa[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:110",
+        "launches": served["qwen3-1.7b"]["launches"]["flash_attention"],
+        "max_abs_err": max(flash_err, fa["max_abs_err"]),
+        **{k: fa[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6_chunk.py:106",
+        "launches": served["rwkv6-3b"]["launches"]["wkv6"],
+        "max_abs_err": max(wkv6_err, wk["max_abs_err"]),
+        **{k: wk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,73 @@
+"""Architectures x input shapes (the 40-cell grid of the JAX package).
+
+Each ported architecture is one module here holding ``CONFIG`` with the
+published dimensions. Only the dense-GQA Qwen3-1.7B and the attention-free
+RWKV6-3B are ported so far; the other eight come with a later slice of
+the port (most need MLA, MoE, Mamba, the encoder or a frontend), and
+``get_config`` raises ``NotImplementedError`` for them. ``long_500k`` needs a
+sub-quadratic token mixer and is a skip for pure full-attention archs.
+"""
+
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass
+
+ARCHS = (
+    "qwen3-1.7b",
+    "chatglm3-6b",
+    "minicpm3-4b",
+    "qwen2-72b",
+    "deepseek-moe-16b",
+    "granite-moe-1b-a400m",
+    "internvl2-1b",
+    "jamba-1.5-large-398b",
+    "whisper-small",
+    "rwkv6-3b",
+)
+PORTED_ARCHS = ("qwen3-1.7b", "rwkv6-3b")
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_config(name: str):
+    if name not in ARCHS:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
+    if name not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"{name} is not ported yet: the other architectures (MLA, MoE, "
+            "Mamba, the encoder and frontends, the remaining dense configs) "
+            f"come with a later slice of the port; ported so far: {PORTED_ARCHS}"
+        )
+    mod = importlib.import_module(
+        "repro_torch.configs." + name.replace("-", "_").replace(".", "_")
+    )
+    return mod.CONFIG
+
+
+def arch_shape_cells(archs=PORTED_ARCHS):
+    """The (arch, shape, skip reason or None) cells of ``archs`` (default:
+    the ported architectures, the only ones :func:`get_config` knows)."""
+    cells = []
+    for a in archs:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            skip = None
+            if s.name == "long_500k" and not cfg.subquadratic:
+                skip = "pure full-attention arch: 500k decode needs a sub-quadratic mixer"
+            cells.append((a, s.name, skip))
+    return cells

@@ -15,7 +15,11 @@ same inputs to both packages.
 * a KV page configuration and a hardware tier profile: their dataclass
   fields;
 * a page pool: a numpy array, whose bfloat16 (``ml_dtypes``, as the JAX
-  package's host pool holds it) crosses as its ``uint16`` bits.
+  package's host pool holds it) crosses as its ``uint16`` bits;
+* model parameters: the JAX ``init_model`` pytree as nested dicts of numpy
+  arrays, each block group's leaves stacked on a leading ``G`` axis, which
+  the port unstacks into one dict a layer (bfloat16 again as ``uint16``
+  bits on the way back).
 """
 
 from __future__ import annotations
@@ -131,3 +135,55 @@ def pool_bits(t: torch.Tensor) -> np.ndarray:
         t = t.view(torch.int16)
         return t.numpy().view(np.uint16)
     return t.numpy()
+
+
+def _model_tensor(a) -> torch.Tensor:
+    return pool_from_numpy(np.asarray(a))
+
+
+def model_params_from_jax(tree: dict, cfg) -> dict:
+    """The port's parameters (CPU tensors) from the JAX package's
+    ``init_model`` pytree given as numpy arrays. Group ``g``'s block ``i``
+    becomes layer ``g * len(block_pattern) + i``: its ``b{i}_ln1``,
+    ``b{i}_mix``, ``b{i}_ln2`` and ``b{i}_ffn`` entries, sliced at ``g``,
+    become the layer's ``ln1``, ``mix``, ``ln2`` and ``ffn``."""
+    groups = tree["groups"]
+    layers = []
+    for g in range(cfg.num_groups):
+        for i in range(cfg.group_size):
+            layers.append({
+                part: {name: _model_tensor(np.asarray(a)[g])
+                       for name, a in groups[f"b{i}_{part}"].items()}
+                for part in ("ln1", "mix", "ln2", "ffn") if f"b{i}_{part}" in groups
+            })
+    params = {
+        "embed": _model_tensor(tree["embed"]),
+        "final_norm": {k: _model_tensor(v) for k, v in tree["final_norm"].items()},
+        "layers": layers,
+    }
+    if "lm_head" in tree:
+        params["lm_head"] = _model_tensor(tree["lm_head"])
+    return params
+
+
+def params_from_model(params: dict, cfg) -> dict:
+    """The inverse of :func:`model_params_from_jax`: the JAX pytree layout
+    as numpy arrays (layers stacked per group again; bfloat16 as ``uint16``
+    bits)."""
+    G, n = cfg.num_groups, cfg.group_size
+    groups = {}
+    for i in range(n):
+        for part in params["layers"][i]:
+            groups[f"b{i}_{part}"] = {
+                name: np.stack([pool_bits(params["layers"][g * n + i][part][name])
+                                for g in range(G)])
+                for name in params["layers"][i][part]
+            }
+    tree = {
+        "embed": pool_bits(params["embed"]),
+        "final_norm": {k: pool_bits(v) for k, v in params["final_norm"].items()},
+        "groups": groups,
+    }
+    if "lm_head" in params:
+        tree["lm_head"] = pool_bits(params["lm_head"])
+    return tree

@@ -1,0 +1,112 @@
+"""RWKV6 (Finch) WKV over a whole sequence, with its final state.
+
+:func:`wkv6` runs ``S_t = diag(w_t) S_{t-1} + k_t v_t^T`` and
+``o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)`` from a zero state for each
+(batch, head) and returns ``o`` and the final float32 state. On a CUDA
+tensor it launches the hand-written Hopper kernel ``csrc/wkv6.cu``, which
+replaces the TPU kernel ``repro/kernels/rwkv6_chunk.py::wkv6_chunked``
+(``pallas_call`` at ``rwkv6_chunk.py:106``); on a CPU tensor it takes
+:func:`wkv6_plain`, which follows ``ref.wkv6`` (a sequential loop in
+float32). There is no fallback from one to the other.
+
+The kernel keeps the recurrence sequential, so it is exact for any decay;
+the TPU kernel's chunked form divides by cumulative decays clamped at
+1e-30 instead.
+
+Bound: operations on a dependent chain of tokens (about 6.7 GFLOP a layer
+at RWKV6-3B's 4 x 2,048-token prefill, 0.10 ms at 67 TFLOP/s of float32);
+the times are in ``PERF.md``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def wkv6_plain(r, k, v, w, u):
+    """Plain PyTorch version of ``ref.wkv6``: the recurrence token by token
+    in float32. Returns ``(o in r's dtype, state (B, H, hd, hd) float32)``."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(S):
+        at = torch.einsum("bhk,bhv->bhkv", kf[:, t], vf[:, t])
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * at))
+        state = wf[:, t, :, :, None] * state + at
+    if outs:
+        o = torch.stack(outs, dim=1)
+    else:
+        o = torch.zeros((B, 0, H, hd), dtype=torch.float32, device=r.device)
+    return o.to(r.dtype), state
+
+
+def _launch(r, k, v, w, u):
+    if r.dim() != 4 or k.shape != r.shape or v.shape != r.shape or w.shape != r.shape:
+        raise ValueError(
+            f"want r, k, v, w of one shape (B,S,H,hd), got {tuple(r.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}, {tuple(w.shape)}"
+        )
+    B, S, H, hd = r.shape
+    if u.shape != (H, hd):
+        raise ValueError(f"u must be (H, hd) = {(H, hd)}, got {tuple(u.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head size {hd} not in {HEAD_DIMS}")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(
+            f"r, k and v must share one of {list(_DTYPES)}, got "
+            f"{r.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if w.dtype != torch.float32 or u.dtype != torch.float32:
+        raise ValueError(f"w and u must be float32, got {w.dtype}, {u.dtype}")
+    for name, t in (("k", k), ("v", v), ("w", w), ("u", u)):
+        if t.device != r.device:
+            raise ValueError(f"{name} is on {t.device}, r on {r.device}")
+    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    o = torch.empty_like(r)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if B == 0 or H == 0:
+        return o, state
+    fn = _build.function("wkv6", "wkv6_launch", [
+        *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5, ctypes.c_void_p,
+    ])
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), o.data_ptr(), state.data_ptr(), _DTYPES[r.dtype],
+                B, S, H, hd, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")
+    wkv6.launches += 1
+    return o, state
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor):
+    """RWKV6 WKV from a zero state.
+
+    ``r``, ``k``, ``v``, ``w`` (B, S, H, hd), ``u`` (H, hd). On the card r,
+    k and v are bfloat16 or float32 (one dtype), w and u float32 and ``hd``
+    in :data:`HEAD_DIMS`. Returns ``(o (B, S, H, hd) in r's dtype, final
+    state (B, H, hd, hd) float32)``, state indexed ``[b, h, k-index,
+    v-index]``.
+
+    ``wkv6.launches`` counts the CUDA kernel's launches; the CPU path never
+    adds to it.
+    """
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    return _launch(r, k, v, w, u)
+
+
+wkv6.launches = 0

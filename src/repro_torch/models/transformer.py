@@ -1,0 +1,220 @@
+"""Model assembly: embedding -> blocks -> head (counterpart of
+:mod:`repro.models.transformer`), for the ``attn`` (dense GQA + MLP) and
+``rwkv`` (time mix + channel mix) blocks.
+
+The JAX package stacks each block group's parameters on a leading ``G``
+axis and iterates with ``jax.lax.scan``; the port keeps one parameter dict
+per layer (``params["layers"]``) and loops over them in Python. The decode
+state keeps the JAX layout (``b{i}_k`` etc., stacked over groups) and is
+updated in place.
+
+* :func:`forward` -- full sequence (prefill), through the flash-attention
+  and WKV6 kernels; returns (logits, aux loss).
+* :func:`decode_step` -- one token against the decode state made by
+  :func:`init_decode_state`.
+* :func:`prefill` -- fills the decode state from a prompt by a loop of
+  decode steps and returns the last step's logits. The JAX ``prefill`` also
+  runs a full ``forward`` whose logits it throws away (XLA drops it under
+  ``jit``); the port does not run it.
+
+Not ported yet (later slices): MLA, MoE, Mamba, the encoder and
+cross-attention, VLM ``extra_embeds``, ``remat`` and the int8 KV cache;
+each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run."""
+    missing = []
+    if cfg.attn_type != "gqa":
+        missing.append(f"{cfg.attn_type} attention")
+    if cfg.n_experts > 0:
+        missing.append("MoE")
+    if any(kind not in ("attn", "rwkv") for kind in cfg.block_pattern):
+        missing.append("Mamba blocks")
+    if cfg.has_encoder:
+        missing.append("the encoder and cross-attention")
+    if cfg.kv_cache_dtype != "bfloat16":
+        missing.append(f"the {cfg.kv_cache_dtype} KV cache")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} come with a later slice of the port"
+        )
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """The block kind of each layer, in order."""
+    return [cfg.block_pattern[i % cfg.group_size] for i in range(cfg.num_layers)]
+
+
+# ------------------------------------------------------------------- params
+def init_model(cfg: ModelConfig, *, generator: torch.Generator, device=None):
+    """Random weights drawn from ``generator`` (on ``device``; ``None``
+    means the card), with the JAX package's scales: normal / sqrt(fan_in)
+    for dense weights, ones and zeros for norms, the RWKV6 constants."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, weights go to {dev}")
+    dt = L.param_dtype(cfg)
+    params = {
+        "embed": L.dense_init((cfg.vocab_size, cfg.d_model), dt, 1, generator, dev),
+        "final_norm": L.norm_init(cfg, cfg.d_model, dev),
+        "layers": [],
+    }
+    for kind in layer_kinds(cfg):
+        lp = {"ln1": L.norm_init(cfg, cfg.d_model, dev),
+              "ln2": L.norm_init(cfg, cfg.d_model, dev)}
+        if kind == "attn":
+            lp["mix"] = L.attn_init(cfg, generator, dev)
+            lp["ffn"] = L.mlp_init(cfg, generator, dev)
+        else:
+            lp["mix"] = L.rwkv_init(cfg, generator, dev)
+        params["layers"].append(lp)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init((cfg.d_model, cfg.vocab_size), dt, 0,
+                                         generator, dev)
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+# ------------------------------------------------------------------ forward
+def _embed(params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens].to(L.compute_dtype(cfg))
+    return x * math.sqrt(cfg.d_model)
+
+
+def _head(params, cfg: ModelConfig, x):
+    x = L.norm_apply(params["final_norm"], x, cfg)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+def forward(params, cfg: ModelConfig, tokens, extra_embeds=None, frames=None,
+            remat: str = "none"):
+    """Full-sequence forward over ``tokens`` (B, S). Returns (logits
+    (B, S, V), aux loss); the aux loss is 0 without MoE."""
+    check_supported(cfg)
+    if extra_embeds is not None or frames is not None:
+        raise NotImplementedError(
+            "VLM extra_embeds and audio frames come with a later slice of the port"
+        )
+    if remat != "none":
+        raise NotImplementedError("remat comes with the training slice of the port")
+    with torch.inference_mode():
+        x = _embed(params, cfg, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        rope = L.rope_tables(positions, cfg)
+        for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+            h = L.norm_apply(lp["ln1"], x, cfg)
+            if kind == "attn":
+                a, _ = L.attn_apply(lp["mix"], h, cfg, rope)
+                x = x + a
+                x = x + L.mlp_apply(lp["ffn"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+            else:
+                t, _ = L.rwkv_time_mix(lp["mix"], h, cfg)
+                x = x + t
+                c, _ = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+                x = x + c
+        logits = _head(params, cfg, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+# ------------------------------------------------------------------- decode
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      enc_len: int = 0, device=None):
+    """Zeroed decode state in the JAX layout, stacked over groups on axis 0:
+    ``b{i}_k`` / ``b{i}_v`` (G, B, max_len, KV, hd) for attention blocks,
+    ``b{i}_tm_x`` / ``b{i}_cm_x`` (G, B, 1, D) and ``b{i}_wkv``
+    (G, B, H, hd, hd) float32 for RWKV blocks."""
+    check_supported(cfg)
+    if enc_len:
+        raise NotImplementedError("cross-attention state comes with a later slice")
+    dev = resolve_device(device)
+    G, dt = cfg.num_groups, L.compute_dtype(cfg)
+    state = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "attn":
+            shape = (G, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            state[f"b{i}_k"] = torch.zeros(shape, dtype=dt, device=dev)
+            state[f"b{i}_v"] = torch.zeros(shape, dtype=dt, device=dev)
+        else:
+            H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+            state[f"b{i}_tm_x"] = torch.zeros((G, batch, 1, cfg.d_model), dtype=dt, device=dev)
+            state[f"b{i}_wkv"] = torch.zeros((G, batch, H, hd, hd), dtype=torch.float32,
+                                             device=dev)
+            state[f"b{i}_cm_x"] = torch.zeros((G, batch, 1, cfg.d_model), dtype=dt, device=dev)
+    return state
+
+
+def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
+    """One decode step. ``token`` (B, 1) int; ``cur_len`` (int) tokens are
+    already in the state. Updates ``state`` in place (the JAX function
+    returns a new one) and returns (logits (B, 1, V), state)."""
+    check_supported(cfg)
+    cur_len = int(cur_len)
+    with torch.inference_mode():
+        x = _embed(params, cfg, token)
+        positions = torch.full(token.shape, cur_len, dtype=torch.int64, device=x.device)
+        rope = L.rope_tables(positions, cfg)
+        for layer, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+            g, i = divmod(layer, cfg.group_size)
+            h = L.norm_apply(lp["ln1"], x, cfg)
+            if kind == "attn":
+                x = x + L.attn_decode(lp["mix"], h, cfg, state[f"b{i}_k"][g],
+                                      state[f"b{i}_v"][g], cur_len, rope)
+                x = x + L.mlp_apply(lp["ffn"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+            else:
+                tm_x, wkv, cm_x = (state[f"b{i}_{n}"][g] for n in ("tm_x", "wkv", "cm_x"))
+                t, (new_tm_x, new_wkv) = L.rwkv_time_mix(lp["mix"], h, cfg,
+                                                         state=(tm_x, wkv))
+                tm_x.copy_(new_tm_x)
+                wkv.copy_(new_wkv)
+                x = x + t
+                c, new_cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg),
+                                                 cfg, prev=cm_x)
+                cm_x.copy_(new_cm_x)
+                x = x + c
+        logits = _head(params, cfg, x)
+    return logits, state
+
+
+def prefill(params, cfg: ModelConfig, tokens, state, extra_embeds=None, frames=None):
+    """Fill ``state`` from the prompt ``tokens`` (B, S >= 1) by S decode
+    steps; returns (the last step's logits (B, 1, V), state)."""
+    if extra_embeds is not None or frames is not None:
+        raise NotImplementedError(
+            "VLM extra_embeds and audio frames come with a later slice of the port"
+        )
+    if tokens.shape[1] < 1:
+        raise ValueError("prefill needs at least one prompt token")
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, state = decode_step(params, cfg, state, tokens[:, t:t + 1], t)
+    return logits, state

@@ -5,14 +5,20 @@ fixture, never at import). Run them on a machine with an H100:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 ``victim_partition`` and ``migrate_pages`` must be exact; ``strided_probe``
 is held to a float64 version within its rounding bound and
-``paged_decode_attention`` to its plain version within 2e-4 (float32) or
-2e-2 (bfloat16).
+``paged_decode_attention`` and ``flash_attention`` to their plain versions
+within 2e-4 (float32) or 2e-2 (bfloat16), ``wkv6`` to its plain version
+within 3e-4 (float32 r, k, v; the float32 state always) or 2e-2 (bfloat16
+r, k, v beside float32 w).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+)
 from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention,
@@ -23,6 +29,7 @@ from repro_torch.kernels.victim_partition import (
     victim_partition,
     victim_partition_plain,
 )
+from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -126,7 +133,7 @@ def test_strided_probe_matches_float64(cuda, ai_iters, nf, ns):
 @pytest.mark.parametrize("rep,hd", [(1, 64), (2, 128), (4, 64)])
 def test_paged_attention_matches_plain(cuda, dtype, rep, hd):
     g = torch.Generator().manual_seed(rep * hd)
-    B, KV, P, ps, ppseq = 5, 2, 24, 16, 6
+    B, KV, P, ps, ppseq = 5, 2, 32, 16, 6  # P >= B * ppseq distinct pages
     q = torch.randn((B, KV * rep, hd), generator=g).to(dtype).to(cuda)
     k = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(cuda)
     v = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(cuda)
@@ -139,3 +146,54 @@ def test_paged_attention_matches_plain(cuda, dtype, rep, hd):
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
     assert not bool(got[3].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
+    (1, 128, 128, 4, 2, 64, True),
+    (2, 100, 100, 16, 8, 128, True),  # ragged tail, Qwen3's head layout
+    (1, 64, 192, 8, 2, 128, False),
+    (1, 33, 65, 2, 1, 64, True),  # T > S: right-aligned causal queries
+    (2, 48, 20, 4, 2, 16, True),  # S > T: the first rows see no key
+    (1, 40, 40, 4, 4, 32, False),
+])
+def test_flash_attention_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal):
+    g = torch.Generator().manual_seed(S * T + hd)
+    q = torch.randn((B, S, H, hd), generator=g).to(dtype).to(cuda)
+    k = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(cuda)
+    v = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    if causal and S > T:
+        assert not bool(got[:, : S - T].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", [(2, 64, 2, 32), (1, 100, 4, 64), (2, 32, 2, 16),
+                                      (1, 19, 2, 128), (2, 300, 8, 64)])
+def test_wkv6_matches_plain(cuda, dtype, B, S, H, hd):
+    g = torch.Generator().manual_seed(S * H + hd)
+    r, k, v = ((torch.randn((B, S, H, hd), generator=g) * 0.5).to(dtype).to(cuda)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, S, H, hd), generator=g) * 0.5 - 4.0)).to(cuda)
+    u = (torch.randn((H, hd), generator=g) * 0.3).to(cuda)
+    before = wkv6.launches
+    o, state = wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    o_want, state_want = wkv6_plain(r, k, v, w, u)
+    tol = 3e-4 if dtype == torch.float32 else 2e-2
+    assert o.dtype == dtype and state.dtype == torch.float32
+    assert torch.allclose(o.float(), o_want.float(), rtol=tol, atol=tol)
+    assert torch.allclose(state, state_want, rtol=3e-4, atol=3e-4)
+
+
+def test_wkv6_refuses_a_bf16_decay(cuda):
+    x = torch.zeros((1, 4, 2, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        wkv6(x, x, x, x, torch.zeros((2, 16), device=cuda))

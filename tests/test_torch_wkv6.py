@@ -1,0 +1,81 @@
+"""The port's wkv6, CPU path, == the sequential ``ref.wkv6`` == the chunked
+Pallas kernel in interpreter mode, at the JAX lane's shapes and tolerance
+(``tests/test_kernels.py``: 3e-4), with S not a multiple of the chunk; and
+with bfloat16 r, k, v beside float32 w and u, as the model passes them
+(``ref`` at the bfloat16 lane's 2e-2)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.rwkv6_chunk import wkv6_chunked
+from repro_torch.kernels import ops
+from repro_torch.kernels.wkv6 import wkv6
+
+RNG = np.random.default_rng(0)
+
+
+def _case(B, S, H, hd, rng=RNG, decay_base=-1.0):
+    r = rng.normal(size=(B, S, H, hd)) * 0.5
+    k = rng.normal(size=(B, S, H, hd)) * 0.5
+    v = rng.normal(size=(B, S, H, hd)) * 0.5
+    w = np.exp(-np.exp(rng.normal(size=(B, S, H, hd)) * 0.5 + decay_base))
+    u = rng.normal(size=(H, hd)) * 0.3
+    return [a.astype(np.float32) for a in (r, k, v, w, u)]
+
+
+def _port(r, k, v, w, u, dtype="float32"):
+    rkv = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (r, k, v)]
+    before = wkv6.launches
+    o, s = wkv6(*rkv, torch.from_numpy(w), torch.from_numpy(u))
+    assert wkv6.launches == before  # the CPU path launches nothing
+    assert o.dtype == getattr(torch, dtype) and s.dtype == torch.float32
+    return o.float().numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("B,S,H,hd,C",
+                         [(2, 64, 2, 32, 16), (1, 100, 4, 64, 32), (2, 32, 2, 16, 32)])
+def test_matches_ref_and_pallas(B, S, H, hd, C):
+    args = _case(B, S, H, hd)
+    o, s = _port(*args)
+    ro, rs = ref.wkv6(*(jnp.asarray(a) for a in args))
+    po, ps = wkv6_chunked(*(jnp.asarray(a) for a in args), chunk=C, interpret=True)
+    for got, want in ((o, ro), (s, rs), (o, po), (s, ps)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 37, 3, 64), (1, 5, 2, 16)])
+def test_bf16_rkv_with_f32_decay(B, S, H, hd):
+    r, k, v, w, u = _case(B, S, H, hd, decay_base=-4.0)
+    o, s = _port(r, k, v, w, u, "bfloat16")
+    rkv = [jnp.asarray(a, jnp.bfloat16) for a in (r, k, v)]
+    ro, rs = ref.wkv6(*rkv, jnp.asarray(w), jnp.asarray(u))
+    assert ro.dtype == jnp.bfloat16
+    np.testing.assert_allclose(o, np.asarray(ro, np.float32), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(s, np.asarray(rs), rtol=3e-4, atol=3e-4)
+
+
+def test_state_carries_the_whole_prompt():
+    # the final state of a prompt, then one more token by the decode formula,
+    # equals the output of the longer prompt at its last token
+    r, k, v, w, u = _case(1, 12, 2, 16)
+    o_all, _ = _port(r, k, v, w, u)
+    _, s = _port(*(a[:, :11] for a in (r, k, v, w)), u)
+    at = np.einsum("bhk,bhv->bhkv", k[:, 11], v[:, 11])
+    last = np.einsum("bhk,bhkv->bhv", r[:, 11], s + u[None, :, :, None] * at)
+    np.testing.assert_allclose(o_all[:, 11], last, rtol=3e-4, atol=3e-4)
+
+
+def test_ops_wkv6_dispatches_to_the_kernel_wrapper():
+    t = [torch.from_numpy(a) for a in _case(1, 8, 2, 16)]
+    o1, s1 = ops.wkv6(*t)
+    o2, s2 = wkv6(*t)
+    assert torch.equal(o1, o2) and torch.equal(s1, s2)
+
+
+def test_other_devices_are_refused():
+    t = torch.zeros((1, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        wkv6(t, t, t, t, torch.zeros((2, 16), device="meta"))
