@@ -15,10 +15,12 @@ Phases, each of which must pass (any failure exits non-zero):
    over-demand, strided rows; device, pinned-host and mixed pools, pages
    that are not a multiple of 16 bytes), ``strided_probe`` against float64
    within its rounding bound, ``paged_decode_attention`` within a stated
-   tolerance (holes, partial pages, grouped heads, a fully masked row),
-   ``flash_attention`` (causal and not, T > S, ragged tails, grouped heads,
-   rows that see no key) and ``wkv6`` (bf16 r, k, v beside f32 w) in
-   bfloat16 and float32 within stated tolerances;
+   tolerance (holes, partial pages, grouped heads, a fully masked row,
+   sequences over three or more splits ending mid-page, and against the
+   plain version of its split-and-merge), ``flash_attention`` (causal and
+   not, T > S, ragged tails, grouped heads, rows that see no key, multi-tile
+   causal at 1,000 and 2,047 tokens) and ``wkv6`` (bf16 r, k, v beside f32
+   w) in bfloat16 and float32 within stated tolerances;
 3. the CPU lane == the CUDA lane, bit for bit: the sweep through ``run``
    (an untuned sweep and a tuned shrink), and the tiered serving loop at
    the demo's page counts and a narrow page (summary, history, tuner
@@ -519,13 +521,19 @@ def probe_checks(dev) -> float:
 def attention_checks(dev) -> float:
     """paged_decode_attention == its plain version within 2e-4 (float32)
     or 2e-2 (bfloat16): holes, partial last pages, a length past the table,
-    rep in {1, 2, 4}, hd in {64, 128}, and a fully masked row (zeros).
-    Returns the largest absolute difference."""
+    rep in {1, 2, 4}, hd in {64, 128}, and a fully masked row (zeros); then
+    sequences of 40 pages, which the kernel cuts into three or more splits,
+    with lengths that end mid-page in the last split, against the plain
+    version and the plain version of the kernel's split-and-merge, and
+    pools that are not 16-byte aligned. Returns the largest absolute
+    difference."""
     import torch
 
     from repro_torch.kernels.paged_attention import (
+        card_pages_per_split,
         paged_decode_attention,
         paged_decode_attention_plain,
+        paged_decode_attention_split_plain,
     )
 
     g = torch.Generator().manual_seed(14)
@@ -551,6 +559,44 @@ def attention_checks(dev) -> float:
                       f"paged_decode_attention {dtype} rep={rep} hd={hd}: "
                       f"max |diff| {diff} beyond {tol}")
                 check(not bool(got[3].any()), "a fully masked row is not zeros")
+    B, KV, P, ps, ppseq = 4, 8, 200, 16, 40
+    for dtype in (torch.bfloat16, torch.float32):
+        for rep, hd in ((2, 128), (4, 64)):
+            q = torch.randn((B, KV * rep, hd), generator=g).to(dtype).to(dev)
+            k = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(dev)
+            v = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(dev)
+            tbl = torch.randperm(P, generator=g)[: B * ppseq].view(B, ppseq)
+            tbl = tbl.to(torch.int32).to(dev)
+            tbl[0, 5] = -1
+            lens = torch.tensor([633, 0, 250, 639], dtype=torch.int32, device=dev)
+            pps = card_pages_per_split(q, k, tbl)
+            check(-(-ppseq // pps) >= 3, f"40 pages cut into fewer than 3 splits of {pps}")
+            got = paged_decode_attention(q, k, v, tbl, lens)
+            torch.cuda.synchronize()
+            tol = 2e-4 if dtype == torch.float32 else 2e-2
+            for label, want in (
+                ("plain", paged_decode_attention_plain(q, k, v, tbl, lens)),
+                ("split plain", paged_decode_attention_split_plain(q, k, v, tbl, lens, pps)),
+            ):
+                diff = float((got.float() - want.float()).abs().max())
+                worst = max(worst, diff)
+                check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                      f"paged_decode_attention {dtype} rep={rep} hd={hd}, 40 pages in "
+                      f"splits of {pps}: max |diff| {diff} from the {label} version "
+                      f"beyond {tol}")
+            check(not bool(got[1].any()), "a sequence of length 0 is not zeros")
+        # pools one element past a 16-byte boundary: the plain-load path
+        flat = torch.randn((2, P * ps * KV * 64 + 1), generator=g).to(dtype).to(dev)
+        k, v = (flat[i, 1:].view(P, ps, KV, 64) for i in (0, 1))
+        q = torch.randn((B, KV * 2, 64), generator=g).to(dtype).to(dev)
+        got = paged_decode_attention(q, k, v, tbl, lens)
+        torch.cuda.synchronize()
+        want = paged_decode_attention_plain(q, k, v, tbl, lens)
+        diff = float((got.float() - want.float()).abs().max())
+        worst = max(worst, diff)
+        tol = 2e-4 if dtype == torch.float32 else 2e-2
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"paged_decode_attention {dtype} on unaligned pools: max |diff| {diff}")
     return worst
 
 
@@ -829,15 +875,18 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
     [slots, 16 tokens, 8 KV heads, 128] (this script's view of a page as
     [28 groups, K/V, 16, 8, 128]; the JAX package defines no in-page
     layout), with 16 query heads. All 28 groups are driven once with the
-    launch count set to 0 before and read after; group 0 is checked and
-    timed beside the plain version, the K/V byte bound and
+    launch count set to 0 before and read after; group 0 is checked against
+    the plain version and the plain version of the kernel's split-and-merge,
+    and timed beside the plain version, the K/V byte bound and
     scaled_dot_product_attention over pre-gathered K/V (a yardstick only)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.paged_attention import (
+        card_pages_per_split,
         paged_decode_attention,
         paged_decode_attention_plain,
+        paged_decode_attention_split_plain,
     )
 
     kv = capture["server"].kv
@@ -873,7 +922,30 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
     check(torch.allclose(outs[0].float(), want.float(), rtol=2e-2, atol=2e-2)
           and all(bool(torch.isfinite(o).all()) for o in outs),
           f"paged_decode_attention on the serving pool: max |diff| {err}")
+    pps = card_pages_per_split(q, k0, tbl_d)
+    split_want = paged_decode_attention_split_plain(q, k0, v0, tbl_d, lens_d, pps)
+    split_err = float((outs[0].float() - split_want.float()).abs().max())
+    check(torch.allclose(outs[0].float(), split_want.float(), rtol=2e-2, atol=2e-2),
+          f"paged_decode_attention on the serving pool vs its split-and-merge "
+          f"plain version: max |diff| {split_err}")
     ms = cuda_ms(lambda: paged_decode_attention(q, k0, v0, tbl_d, lens_d))
+    # the wrapper's host time a call, and the two kernels' device time a
+    # call: the CUDA-event time above holds both where the card waits for
+    # the host
+    t = time.perf_counter()
+    for _ in range(200):
+        paged_decode_attention(q, k0, v0, tbl_d, lens_d)
+    host_ms = (time.perf_counter() - t) * 1e3 / 200
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            paged_decode_attention(q, k0, v0, tbl_d, lens_d)
+        torch.cuda.synchronize()
+    device_ms = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and ("paged_split_kernel" in e.name
+                         or "paged_merge_kernel" in e.name)) / 1e3 / 20
+    del prof
     plain_ms = cuda_ms(lambda: paged_decode_attention_plain(q, k0, v0, tbl_d, lens_d))
     # yardstick: one fused PyTorch attention call over K/V gathered densely
     T = ppseq * p["page_size"]
@@ -894,13 +966,19 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
     io_bytes = 2 * q.numel() * 2 + tbl.nbytes + lens.nbytes
     bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * tokens * QWEN3_1_7B_QUERY_HEADS * p["head_dim"] / ALU_OPS_PER_S * 1e3
+    n_splits = -(-ppseq // pps)
     return {
-        "launches": launches, "max_abs_err": max(err, 0.0), "ms": ms,
+        "design": f"split page list ({n_splits} splits of {pps} pages), "
+                  "cp.async 16 B, LSE merge",
+        "launches": launches, "max_abs_err": max(err, split_err), "ms": ms,
+        "device_ms": device_ms, "host_ms": host_ms,
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms, "sdpa_max_abs_diff": sdpa_err,
+        "split_plain_max_abs_diff": split_err,
+        "gb_per_s": (kv_bytes + io_bytes) / ms / 1e6,
         "batch": len(batch), "pages_per_seq": ppseq, "tokens": tokens,
-        "kv_bytes": kv_bytes,
+        "kv_bytes": kv_bytes, "pages_per_split": pps, "splits": n_splits,
     }
 
 
@@ -978,7 +1056,9 @@ def probe_tiers(dev) -> dict:
 def flash_checks(dev) -> float:
     """flash_attention == its plain version within 2e-4 (float32) or 2e-2
     (bfloat16): causal and not, T > S, ragged tails, grouped heads, hd in
-    {16, 32, 64, 128}, and rows that see no key (S > T, zeros in both).
+    {16, 32, 64, 128}, rows that see no key (S > T, zeros in both), and
+    causal sequences of 1,000 and 2,047 tokens (many key tiles through the
+    bf16 kernel's cp.async ring, ragged last tiles).
     Returns the largest absolute difference."""
     import torch
 
@@ -994,6 +1074,7 @@ def flash_checks(dev) -> float:
         (1, 64, 192, 8, 2, 128, False), (1, 33, 65, 2, 1, 64, True),
         (2, 48, 20, 4, 2, 16, True), (1, 70, 131, 16, 8, 128, False),
         (1, 257, 257, 16, 8, 128, True), (2, 40, 40, 4, 4, 32, True),
+        (1, 1000, 1000, 16, 8, 128, True), (1, 2047, 2047, 16, 8, 128, True),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, T, H, KV, hd, causal in cases:
@@ -1191,7 +1272,8 @@ def serve_model(name: str, dev, capture: dict) -> dict:
     prefill_device_ms = _device_us(prof) / 1e3
     kernel_device_ms = sum(e.device_time_total for e in prof.events()
                            if e.device_type == torch.autograd.DeviceType.CUDA
-                           and ("flash_kernel" in e.name or "wkv6_kernel" in e.name)) / 1e3
+                           and any(n in e.name for n in ("flash_mma_kernel", "flash_fma_kernel",
+                                                             "wkv6_kernel"))) / 1e3
     del prof
     t = time.perf_counter()
     again = fns["prefill"](params, tokens)
@@ -1336,6 +1418,8 @@ def time_flash(capture: dict) -> dict:
     ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     return {
+        "design": "mma.sync m16n8k16 bf16, cp.async ring" if q.dtype == torch.bfloat16
+                  else "float32 FMA",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",

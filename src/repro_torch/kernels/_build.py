@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.PyDLL] = {}
 # nvcc's output (ptxas register/spill report) of each source built by this
 # process, by source name
 build_log: dict[str, str] = {}
@@ -100,12 +100,17 @@ def build(names=None) -> dict[str, Path]:
     return {name: library_path(name) for name in names}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str) -> ctypes.PyDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+
+    Loaded as a :class:`ctypes.PyDLL`, whose calls keep the GIL: every C
+    function here returns at once (a launch, an attribute query), and
+    releasing and retaking the GIL around each call is host time a call
+    that the microsecond kernels (paged decode attention) feel."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.PyDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
 

@@ -16,8 +16,12 @@ versions; ``ref.attention`` gives NaN there and the TPU kernel the mean of
 V over the padded tile. The model never makes such a row (``S == T``).
 
 Bound: operations (about 69 GFLOP a layer at Qwen3-1.7B's 4 x 2,048-token
-prefill, 0.07 ms at the tensor cores' rate). The first design runs on
-float32 FMAs without tensor cores; the times are in ``PERF.md``.
+prefill, 0.07 ms at the tensor cores' rate). The kernel has one design per
+dtype, and the wrapper dispatches by dtype: bfloat16 (the model's path)
+runs FlashAttention-2 on the tensor cores (``mma.sync`` m16n8k16, bf16 in
+and float32 accumulate, P kept in registers, K/V tiles in a ``cp.async``
+ring); float32 runs float32 FMAs without tensor cores, because TF32 would
+not hold the float32 checks. The times are in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -86,7 +90,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     smem = _build.function("flash_attention", "flash_attention_smem_bytes",
-                           [ctypes.c_int], ctypes.c_longlong)(hd)
+                           [ctypes.c_int] * 2, ctypes.c_longlong)(_DTYPES[q.dtype], hd)
     if not 0 < smem <= _SMEM_LIMIT:
         raise ValueError(f"a block would need {smem} bytes of shared memory")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)

@@ -5,8 +5,9 @@ fixture, never at import). Run them on a machine with an H100:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 ``victim_partition`` and ``migrate_pages`` must be exact; ``strided_probe``
 is held to a float64 version within its rounding bound and
-``paged_decode_attention`` and ``flash_attention`` to their plain versions
-within 2e-4 (float32) or 2e-2 (bfloat16), ``wkv6`` to its plain version
+``paged_decode_attention`` (also to the plain version of its
+split-and-merge) and ``flash_attention`` to their plain versions within
+2e-4 (float32) or 2e-2 (bfloat16), ``wkv6`` to its plain version
 within 3e-4 (float32 r, k, v; the float32 state always) or 2e-2 (bfloat16
 r, k, v beside float32 w).
 """
@@ -21,8 +22,10 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
 from repro_torch.kernels.paged_attention import (
+    card_pages_per_split,
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_decode_attention_split_plain,
 )
 from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
 from repro_torch.kernels.victim_partition import (
@@ -149,7 +152,55 @@ def test_paged_attention_matches_plain(cuda, dtype, rep, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep,hd", [(2, 128), (4, 64)])
+def test_paged_attention_long_sequences_match_plain_and_split_plain(cuda, dtype, rep, hd):
+    # 40 pages of 16 a sequence: several splits, lengths that end mid-page in
+    # the last split, a hole, a sequence with no valid token
+    g = torch.Generator().manual_seed(rep + hd)
+    B, KV, P, ps, ppseq = 4, 8, 200, 16, 40
+    q = torch.randn((B, KV * rep, hd), generator=g).to(dtype).to(cuda)
+    k = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(cuda)
+    v = torch.randn((P, ps, KV, hd), generator=g).to(dtype).to(cuda)
+    tbl = torch.randperm(P, generator=g)[: B * ppseq].view(B, ppseq).to(torch.int32)
+    tbl[0, 5] = -1
+    lens = torch.tensor([633, 0, 250, 639], dtype=torch.int32)
+    tbl_d, lens_d = tbl.to(cuda), lens.to(cuda)
+    pps = card_pages_per_split(q, k, tbl_d)
+    assert -(-ppseq // pps) >= 3
+    got = paged_decode_attention(q, k, v, tbl_d, lens_d)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for want in (paged_decode_attention_plain(q, k, v, tbl_d, lens_d),
+                 paged_decode_attention_split_plain(q, k, v, tbl_d, lens_d, pps)):
+        assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not bool(got[1].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_unaligned_pool_matches_plain(cuda, dtype):
+    # pools that start one element past a 16-byte boundary take the
+    # kernel's plain-load path instead of cp.async
+    g = torch.Generator().manual_seed(7)
+    B, KV, P, ps, ppseq, hd = 3, 2, 24, 16, 6, 64
+    flat = torch.randn((2, P * ps * KV * hd + 1), generator=g).to(dtype).to(cuda)
+    k, v = (flat[i, 1:].view(P, ps, KV, hd) for i in (0, 1))
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    q = torch.randn((B, KV * 2, hd), generator=g).to(dtype).to(cuda)
+    tbl = torch.randperm(P, generator=g)[: B * ppseq].view(B, ppseq).to(torch.int32)
+    tbl[0, 1] = -1
+    lens = torch.tensor([90, 0, 41], dtype=torch.int32)
+    got = paged_decode_attention(q, k, v, tbl, lens)
+    torch.cuda.synchronize()
+    want = paged_decode_attention_plain(q, k, v, tbl.to(cuda), lens.to(cuda))
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not bool(got[1].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
+    (1, 1000, 1000, 16, 8, 128, True),  # multi-tile causal: the K/V ring
+    (1, 2047, 2047, 16, 8, 128, True),
     (1, 128, 128, 4, 2, 64, True),
     (2, 100, 100, 16, 8, 128, True),  # ragged tail, Qwen3's head layout
     (1, 64, 192, 8, 2, 128, False),

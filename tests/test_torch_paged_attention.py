@@ -2,7 +2,10 @@
 == the Pallas kernel in interpreter mode at the JAX lane's shapes
 (``tests/test_kernels.py``, rtol = atol = 2e-4, sequences with at least one
 valid token), page-permutation invariance, strided pool views, and the fully
-masked row against ``ref`` (zeros; the Pallas kernel differs there)."""
+masked row against ``ref`` (zeros; the Pallas kernel differs there). The
+card kernel's split-and-merge, in its plain version, against the same two
+at 2e-4 (split boundaries, holes on them, splits and sequences with no
+valid token), and the wrapper's split planner."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +14,12 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.paged_attention import paged_decode_attention as pallas_paged
-from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.paged_attention import (
+    BLOCKS_PER_SM,
+    paged_decode_attention,
+    paged_decode_attention_split_plain,
+    pages_per_split,
+)
 
 RNG = np.random.default_rng(0)
 
@@ -97,3 +105,98 @@ def test_strided_view_of_a_serving_pool():
     got = paged_decode_attention(q, k, v, tbl, lens)
     want = paged_decode_attention(q, k.contiguous(), v.contiguous(), tbl, lens)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def _split(args, pps):
+    return paged_decode_attention_split_plain(
+        *(torch.from_numpy(a) for a in args), pages_per_split=pps).numpy()
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3, "ppseq"])
+@pytest.mark.parametrize(
+    "B,H,KV,hd,P,psize,ppseq",
+    [(2, 8, 4, 64, 16, 16, 4), (1, 16, 2, 64, 32, 8, 8), (3, 4, 2, 32, 40, 4, 7)],
+)
+def test_split_plain_matches_ref_and_pallas(B, H, KV, hd, P, psize, ppseq, pps):
+    args = _case(B, H, KV, hd, P, psize, ppseq, rng=np.random.default_rng(ppseq))
+    got = _split(args, ppseq if pps == "ppseq" else pps)
+    pallas = np.asarray(pallas_paged(*(jnp.asarray(a) for a in args), interpret=True))
+    np.testing.assert_allclose(got, _ref(*args), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3])
+def test_split_plain_hole_on_a_split_boundary(pps):
+    args = list(_case(3, 8, 2, 64, 24, 8, 6, rng=np.random.default_rng(3)))
+    args[3][0, 2] = -1  # first page of a split for pps in {1, 2}, last for 3
+    args[3][1, 3] = -1
+    args[4][:] = [48, 30, 45]
+    want = _ref(*args)
+    np.testing.assert_allclose(_split(args, pps), want, rtol=2e-4, atol=2e-4)
+    pallas = np.asarray(pallas_paged(*(jnp.asarray(a) for a in args), interpret=True))
+    np.testing.assert_allclose(_split(args, pps), pallas, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("pps", [1, 2])
+def test_split_plain_split_with_no_valid_token(pps):
+    # sequence 0: its first split is all holes; sequence 1: its length ends
+    # before its last splits begin
+    args = list(_case(2, 4, 2, 64, 16, 8, 6, rng=np.random.default_rng(4)))
+    args[3][0, :2] = -1
+    args[4][:] = [40, 9]
+    got = _split(args, pps)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _ref(*args), rtol=2e-4, atol=2e-4)
+    pallas = np.asarray(pallas_paged(*(jnp.asarray(a) for a in args), interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+def test_split_plain_sequence_of_length_zero(pps):
+    args = list(_case(3, 4, 2, 64, 16, 16, 3, rng=np.random.default_rng(5)))
+    args[4][1] = 0
+    got = _split(args, pps)
+    assert np.isfinite(got).all() and not got[1].any()
+    np.testing.assert_allclose(got, _ref(*args), rtol=2e-4, atol=2e-4)
+    # the Pallas kernel gives the mean of a masked page there: rows 0 and 2
+    pallas = np.asarray(pallas_paged(*(jnp.asarray(a) for a in args), interpret=True))
+    np.testing.assert_allclose(got[[0, 2]], pallas[[0, 2]], rtol=2e-4, atol=2e-4)
+
+
+def test_split_plain_matches_the_plain_version_in_bfloat16():
+    args = _case(4, 16, 8, 128, 64, 16, 9, rng=np.random.default_rng(6))
+    t = [torch.from_numpy(a) for a in args]
+    t[0], t[1], t[2] = (x.to(torch.bfloat16) for x in t[:3])
+    want = paged_decode_attention(*t)
+    for pps in (1, 2, 5):
+        got = paged_decode_attention_split_plain(*t, pages_per_split=pps)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("ppseq", [0, 1, 9, 22, 257])
+@pytest.mark.parametrize("batch,kv_heads", [(1, 1), (12, 8), (16, 8), (200, 8)])
+@pytest.mark.parametrize("max_pages", [1, 1000])
+def test_split_planner_covers_every_page_once(ppseq, batch, kv_heads, max_pages):
+    sm = 132
+    pps = pages_per_split(ppseq, batch, kv_heads, sm, max_pages)
+    assert 1 <= pps <= max_pages
+    n_splits = -(-ppseq // pps) if ppseq else 1
+    covered = [p for s in range(n_splits) for p in range(s * pps, min((s + 1) * pps, ppseq))]
+    assert covered == list(range(ppseq))  # every page once, in table order
+    grid = batch * kv_heads * n_splits
+    assert grid >= batch * kv_heads  # no smaller than one block a (sequence, KV head)
+    # the grid reaches the target, or one block a page of the table
+    assert grid >= min(BLOCKS_PER_SM * sm, batch * kv_heads * max(ppseq, 1))
+
+
+def test_split_planner_at_the_serving_shape():
+    # 16 sequences over 8 KV heads on 132 SMs: 5 blocks a (sequence, head)
+    # wanted; 9 pages in 9 splits of 1, 22 pages in 6 splits of 4
+    assert pages_per_split(9, 16, 8, 132, 7) == 1
+    assert pages_per_split(22, 16, 8, 132, 7) == 4
+    assert pages_per_split(22, 16, 8, 132, 3) == 3
+    with pytest.raises(ValueError):
+        paged_decode_attention_split_plain(*(torch.zeros(s) for s in (
+            (1, 2, 16), (2, 4, 1, 16), (2, 4, 1, 16))),
+            torch.zeros((1, 2), dtype=torch.int32), torch.ones(1), pages_per_split=0)
