@@ -12,8 +12,11 @@ Phases, each of which must pass (any failure exits non-zero):
    at once;
 2. every kernel against its plain PyTorch version on the card over seeded
    inputs: ``victim_partition`` and ``migrate_pages`` exactly (ragged rows,
-   over-demand, strided rows; device, pinned-host and mixed pools, pages
-   that are not a multiple of 16 bytes), ``strided_probe`` against float64
+   over-demand, strided rows, rows of one to three tiles with the demand on
+   a tile boundary, 1,000 short rows, the main path's shape 20 times over;
+   device, pinned-host and mixed pools, pages that are not a multiple of 16
+   bytes, the full Qwen3-1.7B KV page, a batch of more pages than the copy
+   kernel has blocks, host and device page ids), ``strided_probe`` against float64
    within its rounding bound, ``paged_decode_attention`` within a stated
    tolerance (holes, partial pages, grouped heads, a fully masked row,
    sequences over three or more splits ending mid-page, and against the
@@ -31,7 +34,8 @@ Phases, each of which must pass (any failure exits non-zero):
 4. the sweep's main path at full size through the entry points a user
    calls (``repro_torch.sim.api.run``, ``build_database``), with the
    ``victim_partition`` count set to 0 just before and read just after;
-5. ``victim_partition`` timed on the main path's inputs;
+5. ``victim_partition`` timed on the main path's inputs: CUDA events
+   around one call, the profiler's device time, the wrapper's host time;
 6. tiered serving at full width through the port's public classes
    (``repro_torch.serving``): Qwen3-1.7B KV pages, a pinned host pool and
    an HBM pool, 800 tuned rounds, with the ``migrate_pages`` count set to
@@ -39,7 +43,9 @@ Phases, each of which must pass (any failure exits non-zero):
 7. the serving kernels on the inputs the card sees: ``paged_decode_
    attention`` over the last round's batch straight out of the HBM pool
    (every layer group driven once, counted), ``migrate_pages`` on the
-   run's largest promotion and demotion, ``strided_probe`` over a 1 GiB HBM
+   run's largest promotion and demotion and on one page each way (device
+   time too, beside the copy engines), device to device beside
+   ``index_copy_``, ``strided_probe`` over a 1 GiB HBM
    pool and a 1 GiB pinned host pool (six cases driven once, counted);
    CUDA events, median of repeated runs, beside the plain version, the
    bound and a PyTorch yardstick where one call computes the same function;
@@ -160,16 +166,55 @@ def cuda_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def profiled_ms(fn, *kernels: str, calls: int = 20) -> float:
+    """Device milliseconds of one call of ``fn`` spent in kernels whose name
+    holds one of ``kernels`` (none named: all the call's device work), by
+    the profiler, over ``calls`` calls after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (not kernels or any(k in e.name for k in kernels)))
+    return us / 1e3 / calls
+
+
+def host_ms_per_call(fn, calls: int = 200) -> float:
+    """Host milliseconds of one call of ``fn`` (the wrapper's own time: the
+    launches queue on the card), by the host clock over ``calls`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host
+
+
 # ------------------------------------------------------------ phase 2
 def kernel_checks(dev) -> int:
-    """victim_partition == its plain version on the card over seeded rows;
-    returns the largest absolute difference seen (must be 0)."""
+    """victim_partition == its plain version on the card over seeded rows
+    (and == the plain form of its tiled decomposition): ragged rows, rows of
+    one to three of the kernel's tiles with the demand on a tile boundary,
+    1,000 short rows in one launch, and the main path's shape 20 times over
+    (a look-back race shows as a difference in some run); returns the
+    largest absolute difference seen (must be 0)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.victim_partition import (
+        TILE,
         victim_partition,
         victim_partition_plain,
+        victim_partition_tiled_plain,
     )
 
     rng = np.random.default_rng(20261016)
@@ -185,22 +230,40 @@ def kernel_checks(dev) -> int:
                  int(rng.integers(0, n_cols + 2))], dtype=np.int64,
             )
             cases.append((torch.from_numpy(fast).to(dev), demand))
+    for n_cols in (TILE - 1, TILE, TILE + 1, 2 * TILE, 3 * TILE - 5, 3 * TILE):
+        fast = (rng.random((4, n_cols)) < 0.5).astype(np.int32)
+        cum = np.cumsum(fast, axis=1)
+        # the count through the first tile, the second, one past it, all
+        demand = np.array([cum[0, min(TILE, n_cols) - 1],
+                           cum[1, min(2 * TILE, n_cols) - 1],
+                           cum[2, min(TILE, n_cols) - 1] + 1, cum[3, -1]],
+                          dtype=np.int64)
+        cases.append((torch.from_numpy(fast).to(dev), demand))
+    short = (rng.random((1000, 37)) < 0.5).astype(np.int32)
+    cases.append((torch.from_numpy(short).to(dev), rng.integers(-2, 40, size=1000)))
     strided = torch.from_numpy((rng.random((4, 9001)) < 0.5).astype(np.int32))
     cases.append((strided.to(dev)[:, 3:8999], np.array([0, 1, 2000, 9000])))
-    full = (rng.random((20, FULL_RSS)) < 0.6).astype(np.int32)
-    cases.append(
-        (torch.from_numpy(full).to(dev), rng.integers(0, 2_500_000, size=20))
-    )
+    full = torch.from_numpy((rng.random((20, FULL_RSS)) < 0.6).astype(np.int32)).to(dev)
+    full_demand = rng.integers(0, 2_500_000, size=20)
     for fast01, demand in cases:
         d = torch.from_numpy(np.asarray(demand, dtype=np.int64)).to(dev)
         got = victim_partition(fast01, d)
         torch.cuda.synchronize()
         want = victim_partition_plain(fast01, d)
+        tiled = victim_partition_tiled_plain(fast01, d)
         diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         worst = max(worst, diff)
-        check(diff == 0 and got.shape == fast01.shape,
+        check(diff == 0 and got.shape == fast01.shape and torch.equal(tiled, want),
               f"victim_partition differs from its plain version on "
               f"{tuple(fast01.shape)}: max |diff| {diff}")
+    d = torch.from_numpy(full_demand).to(dev)
+    want = victim_partition_plain(full, d)
+    for run in range(20):
+        got = victim_partition(full, d)
+        diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, diff)
+        check(diff == 0, f"victim_partition at {tuple(full.shape)}, run {run} of "
+              f"20, differs from its plain version: max |diff| {diff}")
     return worst
 
 
@@ -401,6 +464,7 @@ def time_victim_partition(capture: dict) -> dict:
     import torch
 
     from repro_torch.kernels.victim_partition import (
+        TILE,
         victim_partition,
         victim_partition_plain,
     )
@@ -413,6 +477,9 @@ def time_victim_partition(capture: dict) -> dict:
     check(err == 0, "victim_partition differs from its plain version on the "
           "main path's inputs")
     ms = cuda_ms(lambda: victim_partition(fast01, demand))
+    device_ms = profiled_ms(lambda: victim_partition(fast01, demand),
+                            "victim_partition_kernel")
+    host_ms = host_ms_per_call(lambda: victim_partition(fast01, demand))
     plain_ms = cuda_ms(lambda: victim_partition_plain(fast01, demand))
     cumsum_ms = cuda_ms(lambda: torch.cumsum(fast01, dim=1, dtype=torch.int32))
     # bytes the function needs on this data: each row is read up to the
@@ -429,7 +496,11 @@ def time_victim_partition(capture: dict) -> dict:
     bytes_ms = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ALU_OPS_PER_S * 1e3
     return {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "design": f"single-pass scan, tiles of {TILE} elements, decoupled "
+                  "look-back, read first, per-row reached flag",
+        "blocks": n * -(-r // TILE),
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms, "host_ms": host_ms,
+        "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes this mask
@@ -444,14 +515,34 @@ def time_victim_partition(capture: dict) -> dict:
 def migrate_checks(dev) -> float:
     """migrate_pages == its plain version, bit for bit: device->device,
     pinned->device and device->pinned; bf16 and f32; pages that are not a
-    multiple of 16 bytes; one page and every slot. Returns the largest
-    absolute difference (must be 0)."""
+    multiple of 16 bytes; one page and every slot; the full Qwen3-1.7B KV
+    page at 1 and 17 pages; 1,000 pages in one batch (more pages than the
+    kernel's persistent grid has blocks, and more than its parameter holds),
+    with host and with device page ids. Returns the largest absolute
+    difference (must be 0)."""
     import torch
 
     from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
 
     g = torch.Generator().manual_seed(12)
     worst = 0.0
+
+    def compare(src, dst, di, si, label, ids_on_card=False):
+        nonlocal worst
+        want = migrate_pages_plain(dst.clone(), src, di, si)
+        for way in ("d2d", "h2d", "d2h"):
+            s = src.pin_memory() if way == "h2d" else src.to(dev)
+            d = dst.pin_memory() if way == "d2h" else dst.to(dev)
+            ids = (di.to(dev), si.to(dev)) if ids_on_card else (di, si)
+            migrate_pages(d, s, *ids)
+            torch.cuda.synchronize()
+            got = d.cpu()
+            diff = float((got.float() - want.float()).abs().max())
+            worst = max(worst, diff)
+            check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+                  f"migrate_pages {way} {label} differs from its plain version "
+                  f"(max |diff| {diff})")
+
     for dtype in (torch.bfloat16, torch.float32):
         for page in ((7,), (3, 5), (1029,), (28, 2, 16, 8, 16)):
             src = torch.randn((12,) + page, generator=g).to(dtype)
@@ -459,18 +550,22 @@ def migrate_checks(dev) -> float:
             for n in (1, 12):
                 di = torch.randperm(12, generator=g)[:n]
                 si = torch.randperm(12, generator=g)[:n]
-                want = migrate_pages_plain(dst.clone(), src, di, si)
-                for way in ("d2d", "h2d", "d2h"):
-                    s = src.pin_memory() if way == "h2d" else src.to(dev)
-                    d = dst.pin_memory() if way == "d2h" else dst.to(dev)
-                    migrate_pages(d, s, di, si)
-                    torch.cuda.synchronize()
-                    got = d.cpu()
-                    diff = float((got.float() - want.float()).abs().max())
-                    worst = max(worst, diff)
-                    check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
-                          f"migrate_pages {way} {dtype} page {page} n={n} "
-                          f"differs from its plain version (max |diff| {diff})")
+                compare(src, dst, di, si, f"{dtype} page {page} n={n}")
+    page = (QWEN3_1_7B_PAGE["n_groups"], 2, QWEN3_1_7B_PAGE["page_size"],
+            QWEN3_1_7B_PAGE["kv_heads"], QWEN3_1_7B_PAGE["head_dim"])
+    src = torch.randn((24,) + page, generator=g).to(torch.bfloat16)
+    dst = torch.randn((24,) + page, generator=g).to(torch.bfloat16)
+    for n in (1, 17):
+        di, si = torch.randperm(24, generator=g)[:n], torch.randperm(24, generator=g)[:n]
+        compare(src, dst, di, si, f"Qwen3-1.7B KV page n={n}")
+    for width in (1024, 1029):  # 4,096-byte pages (TMA) and 4,116-byte ones
+        src = torch.randn((1200, width), generator=g)
+        dst = torch.randn((1200, width), generator=g)
+        di = torch.randperm(1200, generator=g)[:1000]
+        si = torch.randperm(1200, generator=g)[:1000]
+        compare(src, dst, di, si, f"1,000 pages of {width} floats, host ids")
+        compare(src, dst, di.flip(0), si, f"1,000 pages of {width} floats, ids "
+                "on the card", ids_on_card=True)
     return worst
 
 
@@ -834,11 +929,15 @@ def serving_full_width(dev, capture: dict) -> dict:
 
 
 def time_migrate(dev, capture: dict) -> dict:
-    """migrate_pages on the largest promotion (pinned host -> HBM) and
-    demotion (HBM -> pinned host) batches of the serving run, beside the
-    plain version and the PCIe bound; device -> device on the promotion's
-    slots beside ``index_copy_``. Run after the serving checks: it rewrites
-    those pages."""
+    """migrate_pages on the serving run's largest promotion (pinned host ->
+    HBM) and demotion (HBM -> pinned host) batches and on one page each way,
+    by CUDA events around one call and by the profiler's device time,
+    beside the plain version, the PCIe bound and the copy engines (one
+    ``copy_`` a page, a yardstick the port never calls); device -> device on
+    the promotion's slots beside ``index_copy_``, both by device time, with
+    the HBM bound; and the wrapper's host time a call. Run after the
+    serving checks: it rewrites those pages."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
@@ -846,26 +945,49 @@ def time_migrate(dev, capture: dict) -> dict:
     kv = capture["server"].kv
     page_b = kv.cfg.bytes_per_page
     out = {}
+    cases = []
     for way, dst_pool, src_pool in (("promote", kv.hbm, kv.host),
                                     ("demote", kv.host, kv.hbm)):
-        if way not in capture:
-            continue
-        di, si = (torch.as_tensor(x, device=dev) for x in capture[way])
-        n = di.numel()
-        ms = cuda_ms(lambda: migrate_pages(dst_pool, src_pool, di, si), repeats=20)
-        plain_ms = cuda_ms(lambda: migrate_pages_plain(dst_pool, src_pool, di, si),
-                           repeats=5, warmup=1)
+        if way in capture:
+            di, si = capture[way]
+            cases.append((way, dst_pool, src_pool, di, si))
+            cases.append((f"{way}_1", dst_pool, src_pool, di[:1], si[:1]))
+    for way, dst_pool, src_pool, di, si in cases:
+        n = len(di)
+        # host ids, as the serving loop passes them
+        call = lambda: migrate_pages(dst_pool, src_pool, di, si)
+        ms = cuda_ms(call, repeats=20)
+        device_ms = profiled_ms(call, "migrate_kernel")
+        plain_ms = cuda_ms(lambda: migrate_pages_plain(
+            dst_pool, src_pool, torch.as_tensor(di), torch.as_tensor(si)),
+            repeats=5, warmup=1)
+        pairs = list(zip(di.tolist(), si.tolist()))
+
+        def engines():
+            for d, s in pairs:
+                dst_pool[d].copy_(src_pool[s], non_blocking=True)
+
+        ce_ms = cuda_ms(engines, repeats=20)
+        ce_device_ms = profiled_ms(engines)
         bound = n * page_b / PCIE_BYTES_PER_S * 1e3
-        out[way] = {"pages": n, "bytes": n * page_b, "ms": ms,
+        out[way] = {"pages": n, "bytes": n * page_b, "ms": ms, "device_ms": device_ms,
                     "plain_ms": plain_ms, "bound_ms": bound,
-                    "gb_per_s": n * page_b / ms / 1e6}
-    di = torch.as_tensor(capture["promote"][0], device=dev)
-    rows = kv.hbm[di].clone()
-    seq = torch.arange(di.numel(), device=dev)
-    d2d_ms = cuda_ms(lambda: migrate_pages(kv.hbm, rows, di, seq), repeats=20)
-    index_copy_ms = cuda_ms(lambda: kv.hbm.index_copy_(0, di, rows), repeats=20)
-    out["d2d"] = {"pages": di.numel(), "ms": d2d_ms, "index_copy_ms": index_copy_ms,
-                  "bound_ms": 2 * di.numel() * page_b / HBM_BYTES_PER_S * 1e3}
+                    "gb_per_s": n * page_b / device_ms / 1e6,
+                    "copy_engine_ms": ce_ms, "copy_engine_device_ms": ce_device_ms,
+                    "copy_engine_gb_per_s": n * page_b / ce_device_ms / 1e6}
+    di = capture["promote"][0]
+    out["host_ms"] = host_ms_per_call(
+        lambda: migrate_pages(kv.hbm, kv.host, di[:1], capture["promote"][1][:1]))
+    di_d = torch.as_tensor(di, device=dev)
+    rows = kv.hbm[di_d].clone()
+    seq = np.arange(len(di))
+    d2d = lambda: migrate_pages(kv.hbm, rows, di, seq)
+    index_copy = lambda: kv.hbm.index_copy_(0, di_d, rows)
+    out["d2d"] = {"pages": len(di), "ms": cuda_ms(d2d, repeats=20),
+                  "device_ms": profiled_ms(d2d, "migrate_kernel"),
+                  "index_copy_ms": cuda_ms(index_copy, repeats=20),
+                  "index_copy_device_ms": profiled_ms(index_copy),
+                  "bound_ms": 2 * len(di) * page_b / HBM_BYTES_PER_S * 1e3}
     return out
 
 
@@ -928,24 +1050,13 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
     check(torch.allclose(outs[0].float(), split_want.float(), rtol=2e-2, atol=2e-2),
           f"paged_decode_attention on the serving pool vs its split-and-merge "
           f"plain version: max |diff| {split_err}")
-    ms = cuda_ms(lambda: paged_decode_attention(q, k0, v0, tbl_d, lens_d))
+    call = lambda: paged_decode_attention(q, k0, v0, tbl_d, lens_d)
+    ms = cuda_ms(call)
     # the wrapper's host time a call, and the two kernels' device time a
     # call: the CUDA-event time above holds both where the card waits for
     # the host
-    t = time.perf_counter()
-    for _ in range(200):
-        paged_decode_attention(q, k0, v0, tbl_d, lens_d)
-    host_ms = (time.perf_counter() - t) * 1e3 / 200
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            paged_decode_attention(q, k0, v0, tbl_d, lens_d)
-        torch.cuda.synchronize()
-    device_ms = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and ("paged_split_kernel" in e.name
-                         or "paged_merge_kernel" in e.name)) / 1e3 / 20
-    del prof
+    host_ms = host_ms_per_call(call)
+    device_ms = profiled_ms(call, "paged_split_kernel", "paged_merge_kernel")
     plain_ms = cuda_ms(lambda: paged_decode_attention_plain(q, k0, v0, tbl_d, lens_d))
     # yardstick: one fused PyTorch attention call over K/V gathered densely
     T = ppseq * p["page_size"]
@@ -1596,6 +1707,7 @@ def main() -> int:
         "bound_ms": vp["bound_ms"],
         "bound_by": vp["bound_by"],
         "library_ms": vp["library_ms"],
+        "device_ms": vp["device_ms"],
         "cumsum_ms": vp["cumsum_ms"],
     }, {
         "name": "migrate_pages",
@@ -1612,8 +1724,12 @@ def main() -> int:
         # index_copy_ is timed device to device beside the kernel instead
         "library_ms": None,
         "pages": promote["pages"],
-        "d2d_ms": mig["d2d"]["ms"],
-        "d2d_index_copy_ms": mig["d2d"]["index_copy_ms"],
+        "device_ms": promote["device_ms"],
+        "copy_engine_ms": promote["copy_engine_ms"],
+        "host_ms": mig["host_ms"],
+        "d2d_device_ms": mig["d2d"]["device_ms"],
+        "d2d_index_copy_device_ms": mig["d2d"]["index_copy_device_ms"],
+        "d2d_bound_ms": mig["d2d"]["bound_ms"],
     }, {
         "name": "strided_probe",
         "route": "cuda",

@@ -15,6 +15,7 @@ once, and waits for them together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -125,6 +126,12 @@ def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _host_query(name: str):
+    return function(name, f"{name}_host_device_ptr", [ctypes.c_void_p],
+                    ctypes.c_ulonglong)
+
+
 def device_address(name: str, t) -> int:
     """The address a kernel of ``csrc/<name>.cu`` dereferences for tensor
     ``t``: its data pointer on the card, or, for a CPU tensor, the device
@@ -133,15 +140,21 @@ def device_address(name: str, t) -> int:
     raises: there is no staging copy behind a kernel."""
     if t.device.type == "cuda":
         return t.data_ptr()
-    query = function(name, f"{name}_host_device_ptr", [ctypes.c_void_p],
-                     ctypes.c_ulonglong)
-    addr = query(t.data_ptr())
+    addr = _host_query(name)(t.data_ptr())
     if not addr:
         raise ValueError(
             f"{name}: a host operand must be pinned memory the device can "
             "address (allocate it with pin_memory=True)"
         )
     return int(addr)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def to_device(t, dev):

@@ -132,11 +132,6 @@ def pages_per_split(ppseq: int, batch: int, kv_heads: int, sm_count: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _max_rows(dtype_code: int, rep: int, hd: int) -> int:
     return _build.function("paged_attention", "paged_attention_max_rows",
                            [ctypes.c_int] * 3)(dtype_code, rep, hd)
@@ -160,7 +155,7 @@ def card_pages_per_split(q, k_pages, page_table) -> int:
     if max_pages < 1:
         raise ValueError(f"a page of {page_size} tokens does not fit a block's "
                          "shared memory")
-    return pages_per_split(page_table.shape[1], B, KV, _sm_count(q.device.index),
+    return pages_per_split(page_table.shape[1], B, KV, _build.sm_count(q.device.index),
                            max_pages)
 
 

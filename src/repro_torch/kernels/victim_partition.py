@@ -15,20 +15,26 @@ on a CPU tensor it takes :func:`victim_partition_plain`, the same function
 in plain PyTorch. There is no fallback from one to the other: a CUDA
 tensor launches the kernel or raises.
 
-Bound: bytes. The function reads ``fast01`` (int32) and writes the mask
-(int32), 8 bytes an element: about 0.52 GB at the main path's
-``[20, 3,250,585]``, about 0.16 ms at the H100's 3.35 TB/s. Its first design
-(one block per row, see the source) runs far below that bound; the times
-are in ``PERF.md``.
+Bound: bytes. The function writes the mask (int32) whole and reads
+``fast01`` (int32) up to where each row's running count reaches its demand:
+at the main path's ``[20, 3,250,585]`` 0.26 GB written and up to 0.26 GB
+read, 0.08-0.16 ms at the H100's 3.35 TB/s. The kernel splits every row
+into tiles of :data:`TILE` elements, one block a tile, joined by a decoupled
+look-back; :func:`victim_partition_tiled_plain` is that decomposition in
+plain PyTorch. The times are in ``PERF.md``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
+
+# elements of a row one block of the kernel takes (kTile in the source)
+TILE = 8192
 
 
 def victim_partition_plain(fast01: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
@@ -39,9 +45,50 @@ def victim_partition_plain(fast01: torch.Tensor, demand: torch.Tensor) -> torch.
     return ((fast01 > 0) & (cum <= d)).to(torch.int32)
 
 
+def victim_partition_tiled_plain(fast01: torch.Tensor, demand: torch.Tensor,
+                                 tile: int = None) -> torch.Tensor:
+    """The kernel's decomposition in plain PyTorch: each row cut into tiles
+    of ``tile`` elements (default :data:`TILE`), the count of each tile,
+    the exclusive running count before each tile (what the look-back
+    gives a block), and the early stop: a tile whose count before it has
+    reached the demand (or whose demand is <= 0) is zeros, unread. Equal
+    to :func:`victim_partition_plain` for ``fast01`` of 0s and 1s."""
+    tile = TILE if tile is None else int(tile)
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    n_rows, n_cols = fast01.shape
+    n_tiles = -(-n_cols // tile)
+    f = torch.nn.functional.pad(fast01.to(torch.int32), (0, n_tiles * tile - n_cols))
+    f = f.view(n_rows, n_tiles, tile)
+    counts = f.sum(dim=2, dtype=torch.int32)
+    before = torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
+    d = demand.to(device=fast01.device, dtype=torch.int32).reshape(n_rows, 1)
+    unread = before >= d
+    within = torch.cumsum(torch.where(unread[:, :, None], 0, f), dim=2,
+                          dtype=torch.int32)
+    mask = (f > 0) & ~unread[:, :, None] & (before[:, :, None] + within <= d[:, :, None])
+    return mask.reshape(n_rows, n_tiles * tile)[:, :n_cols].to(torch.int32)
+
+
 def _aligned(t: torch.Tensor) -> int:
     """1 when every row of ``t`` starts on a 16-byte boundary (int4 access)."""
     return int(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_words():
+    return _build.function("victim_partition", "victim_partition_scratch_words",
+                           [ctypes.c_longlong, ctypes.c_longlong], ctypes.c_longlong)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    return _build.function("victim_partition", "victim_partition_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
 
 
 def _launch(fast01: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
@@ -69,17 +116,16 @@ def _launch(fast01: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
     )[:, :n_cols]
     if n_rows == 0 or n_cols == 0:
         return out
-    fn = _build.function("victim_partition", "victim_partition_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ])
+    # tile counter, status words and per-row flags of the look-back, zeroed
+    scratch = torch.zeros(
+        _scratch_words()(n_rows, n_cols), dtype=torch.int64, device=fast01.device
+    )
     with torch.cuda.device(fast01.device):
         stream = torch.cuda.current_stream(fast01.device).cuda_stream
-        rc = fn(
-            fast01.data_ptr(), d.data_ptr(), out.data_ptr(),
+        rc = _launcher()(
+            fast01.data_ptr(), d.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             n_rows, n_cols, fast01.stride(0), out.stride(0),
-            _aligned(fast01), _aligned(out), stream,
+            _aligned(fast01), _aligned(out), TILE, stream,
         )
     if rc != 0:
         raise RuntimeError(f"victim_partition kernel launch failed: CUDA error {rc}")

@@ -3,7 +3,8 @@
 Marked ``cuda``: every test skips without a CUDA device (decided inside a
 fixture, never at import). Run them on a machine with an H100:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-``victim_partition`` and ``migrate_pages`` must be exact; ``strided_probe``
+``victim_partition`` and ``migrate_pages`` must be exact (also at the main
+path's shape 20 times over, and at Qwen3-1.7B's KV page); ``strided_probe``
 is held to a float64 version within its rounding bound and
 ``paged_decode_attention`` (also to the plain version of its
 split-and-merge) and ``flash_attention`` to their plain versions within
@@ -29,8 +30,10 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
 from repro_torch.kernels.victim_partition import (
+    TILE,
     victim_partition,
     victim_partition_plain,
+    victim_partition_tiled_plain,
 )
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
@@ -87,7 +90,39 @@ def test_victim_partition_main_path_shape(cuda):
     d = torch.from_numpy(
         rng.integers(0, 2_500_000, size=20).astype(np.int64)
     ).to(cuda)
-    assert torch.equal(victim_partition(f, d), victim_partition_plain(f, d))
+    want = victim_partition_plain(f, d)
+    # the look-back reads status words while other blocks write them: a
+    # race would show as a difference in some of 20 runs
+    for _ in range(20):
+        assert torch.equal(victim_partition(f, d), want)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3])
+@pytest.mark.parametrize("ragged", [0, 5])
+def test_victim_partition_one_to_three_tiles_demand_on_a_boundary(cuda, tiles, ragged):
+    rng = np.random.default_rng(tiles * 10 + ragged)
+    n_cols = tiles * TILE - ragged
+    fast = (rng.random((4, n_cols)) < 0.5).astype(np.int32)
+    cum = np.cumsum(fast, axis=1)
+    ends = [min(k * TILE, n_cols) - 1 for k in range(1, tiles + 1)]
+    # the count through the first tile, through the last, one past the
+    # first tile's, and past the supply
+    demand = np.array([cum[0, ends[0]], cum[1, ends[-1]], cum[2, ends[0]] + 1,
+                       cum[3, -1] + 3], dtype=np.int64)
+    f, d = torch.from_numpy(fast).to(cuda), torch.from_numpy(demand).to(cuda)
+    got = victim_partition(f, d)
+    assert torch.equal(got, victim_partition_plain(f, d))
+    assert torch.equal(got, victim_partition_tiled_plain(f, d))
+
+
+def test_victim_partition_thousand_short_rows(cuda):
+    rng = np.random.default_rng(1000)
+    f = torch.from_numpy((rng.random((1000, 37)) < 0.5).astype(np.int32)).to(cuda)
+    d = torch.from_numpy(rng.integers(-2, 40, size=1000)).to(cuda)
+    before = victim_partition.launches
+    got = victim_partition(f, d)
+    assert victim_partition.launches == before + 1
+    assert torch.equal(got, victim_partition_plain(f, d))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -107,6 +142,44 @@ def test_migrate_pages_matches_plain(cuda, dtype, page, direction):
     torch.cuda.synchronize()
     assert migrate_pages.launches == before + 1
     assert torch.equal(d.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 17])
+@pytest.mark.parametrize("direction", ["d2d", "h2d", "d2h"])
+def test_migrate_pages_full_qwen3_page(cuda, n, direction):
+    # Qwen3-1.7B's KV page: 28 layers x K/V x 16 tokens x 8 heads x 128, bf16
+    g = torch.Generator().manual_seed(n)
+    page = (28, 2, 16, 8, 128)
+    src = torch.randn((20,) + page, generator=g).to(torch.bfloat16)
+    dst = torch.randn((20,) + page, generator=g).to(torch.bfloat16)
+    di, si = torch.randperm(20, generator=g)[:n], torch.randperm(20, generator=g)[:n]
+    want = migrate_pages_plain(dst.clone(), src, di, si)
+    s = src.pin_memory() if direction == "h2d" else src.to(cuda)
+    d = dst.pin_memory() if direction == "d2h" else dst.to(cuda)
+    migrate_pages(d, s, di.numpy(), si.numpy())
+    torch.cuda.synchronize()
+    assert torch.equal(d.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("width", [1024, 1029])
+@pytest.mark.parametrize("ids_on_card", [False, True])
+def test_migrate_pages_batch_larger_than_the_grid(cuda, width, ids_on_card):
+    # 1,000 pages: more than the persistent grid's blocks and more host ids
+    # than the kernel parameter holds; 4,096-byte pages take the TMA path,
+    # 4,116-byte ones the threads
+    g = torch.Generator().manual_seed(width)
+    src = torch.randn((1200, width), generator=g)
+    dst = torch.randn((1200, width), generator=g)
+    di = torch.randperm(1200, generator=g)[:1000]
+    si = torch.randperm(1200, generator=g)[:1000]
+    want = migrate_pages_plain(dst.clone(), src, di, si)
+    for direction in ("d2d", "h2d", "d2h"):
+        s = src.pin_memory() if direction == "h2d" else src.to(cuda)
+        d = dst.pin_memory() if direction == "d2h" else dst.to(cuda)
+        ids = (di.to(cuda), si.to(cuda)) if ids_on_card else (di, si)
+        migrate_pages(d, s, *ids)
+        torch.cuda.synchronize()
+        assert torch.equal(d.cpu(), want), direction
 
 
 def test_migrate_pages_refuses_pageable_host_memory(cuda):
