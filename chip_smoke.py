@@ -23,7 +23,11 @@ Phases, each of which must pass (any failure exits non-zero):
    plain version of its split-and-merge), ``flash_attention`` (causal and
    not, T > S, ragged tails, grouped heads, rows that see no key, multi-tile
    causal at 1,000 and 2,047 tokens) and ``wkv6`` (bf16 r, k, v beside f32
-   w) in bfloat16 and float32 within stated tolerances;
+   w, strong decays, S from 1 to 2,048, every head size with its columns
+   split over blocks, 10 bit-identical repeats) in bfloat16 and float32
+   within stated tolerances; ``strided_probe`` also at page rows of 1,000
+   and 1,001 floats, a pool base one float past alignment, page counts
+   around its grid, one page, and 20 bit-identical repeats;
 3. the CPU lane == the CUDA lane, bit for bit: the sweep through ``run``
    (an untuned sweep and a tuned shrink), and the tiered serving loop at
    the demo's page counts and a narrow page (summary, history, tuner
@@ -46,7 +50,9 @@ Phases, each of which must pass (any failure exits non-zero):
    run's largest promotion and demotion and on one page each way (device
    time too, beside the copy engines), device to device beside
    ``index_copy_``, ``strided_probe`` over a 1 GiB HBM
-   pool and a 1 GiB pinned host pool (six cases driven once, counted);
+   pool and a 1 GiB pinned host pool (six cases driven once, counted; the
+   profiler's device time of each, and the copy engines' GB/s for one
+   contiguous 0.5 GiB pinned block beside the probe's host reading);
    CUDA events, median of repeated runs, beside the plain version, the
    bound and a PyTorch yardstick where one call computes the same function;
 8. model serving at full width through ``repro_torch.launch.serve.
@@ -60,8 +66,10 @@ Phases, each of which must pass (any failure exits non-zero):
    the state
    (its last logits against the prefill fn's), then 32 decode steps;
 9. ``flash_attention`` and ``wkv6`` timed on the first layer's serving
-   inputs, beside the plain version, the bound and, for attention,
-   ``scaled_dot_product_attention`` (a yardstick the port never calls).
+   inputs (CUDA events, and for ``wkv6`` the profiler's device time and
+   ptxas's registers), beside the plain version, the bound and, for
+   attention, ``scaled_dot_product_attention`` (a yardstick the port never
+   calls).
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -72,6 +80,7 @@ package is imported.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -166,22 +175,50 @@ def cuda_ms(fn, repeats: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(fn, *kernels: str, calls: int = 20) -> float:
-    """Device milliseconds of one call of ``fn`` spent in kernels whose name
-    holds one of ``kernels`` (none named: all the call's device work), by
-    the profiler, over ``calls`` calls after one warm-up call."""
+def batched_ms(fn, calls: int = 20) -> float:
+    """Milliseconds of one call of ``fn`` on the card, by CUDA events around
+    ``calls`` back-to-back calls after one warm-up call: the host's launch
+    work overlaps the card's, so a call longer than its launch reads as its
+    device time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def profiled_ms(fn, *kernels: str, calls: int = 20):
+    """Device milliseconds of one call of ``fn`` spent in kernels whose name
+    holds one of ``kernels`` (none named: all the call's device work), by
+    the profiler, over ``calls`` calls after one warm-up call. With kernels
+    named, the total is divided by the launches of the first one that the
+    trace holds (one a call): the trace can miss launches, and dividing by
+    ``calls`` would then read low. A count other than ``calls`` is logged;
+    with none found the result is None."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
+    found = [e for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and (not kernels or any(k in e.name for k in kernels)))
-    return us / 1e3 / calls
+             and (not kernels or any(k in e.name for k in kernels))]
+    us = sum(e.device_time_total for e in found)
+    n = sum(kernels[0] in e.name for e in found) if kernels else calls
+    if n != calls:
+        log(f"   profiler: {n} launches of {kernels[0]} in the trace of {calls} calls")
+    return us / 1e3 / n if n else None
 
 
 def host_ms_per_call(fn, calls: int = 200) -> float:
@@ -197,6 +234,25 @@ def host_ms_per_call(fn, calls: int = 200) -> float:
     host = (time.perf_counter() - t) * 1e3 / calls
     torch.cuda.synchronize()
     return host
+
+
+def ptxas_registers(source: str) -> list:
+    """Registers and spill bytes of each kernel of ``csrc/<source>.cu``, as
+    ptxas reported them when this process built it (``-Xptxas -v``); empty
+    when the library was already built."""
+    from repro_torch.kernels import _build
+
+    found, entry = [], None
+    for line in _build.build_log.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = {"kernel": m.group(1), "registers": None, "spill_bytes": 0}
+            found.append(entry)
+        elif entry is not None and "spill stores" in line:
+            entry["spill_bytes"] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif entry is not None and (m := re.search(r"Used (\d+) registers", line)):
+            entry["registers"] = int(m.group(1))
+    return found
 
 
 # ------------------------------------------------------------ phase 2
@@ -569,47 +625,91 @@ def migrate_checks(dev) -> float:
     return worst
 
 
-def probe_tolerance(terms, ai_iters: int, n_pages: int, sm_count: int):
+def probe_tolerance(terms, ai_iters: int, n_pages: int, sm_count: int,
+                    page_elems: int = PROBE_PAGE_ELEMS):
     """The probe's float32 rounding bound against float64, per column:
     each term is ai_iters fused multiply-adds of one sign (relative error
     <= ai_iters u), and the kernel adds the terms in chains of at most
-    pages_per_segment + segments additions (relative error <= that many u
-    of the sum of |terms|), u = 2**-24."""
-    from repro_torch.kernels.strided_probe import segments
+    chain_length additions (ceil(n / G) page results a block, then the G
+    blocks' partial rows; relative error <= that many u of the sum of
+    |terms|), u = 2**-24."""
+    from repro_torch.kernels.strided_probe import chain_length
 
-    per_seg = segments(n_pages, PROBE_PAGE_ELEMS, sm_count) if n_pages else 1
-    n_seg = -(-n_pages // per_seg) if n_pages else 0
-    return (ai_iters + per_seg + n_seg + 2) * FP32_EPS * terms
+    chain = chain_length(n_pages, page_elems, sm_count)
+    return (ai_iters + chain + 2) * FP32_EPS * terms
 
 
 def probe_checks(dev) -> float:
     """strided_probe against its float64 plain version within the derived
-    bound, for ai_iters in {0, 1, 7, 64}, an empty fast list and an empty
-    slow list, with the slow pool in pinned host memory. Returns the
-    largest absolute error."""
+    bound, with the slow pool in pinned host memory: ai_iters in {0, 1, 7,
+    64} over an empty fast list, an empty slow list and mixed lists; page
+    rows of 1,000 floats (TMA) and 1,001 floats (the plain-load branch); a
+    pool whose base is one float past alignment (a sliced view); page
+    counts one below and one above the kernel's grid; a 1-page list; and
+    one 4,000-page mixed call 20 times over, bit-identical each time (a
+    stale ring stage read by a wrong mbarrier phase shows as a difference).
+    Returns the largest absolute error."""
     import torch
 
-    from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.strided_probe import (
+        bulk_reads,
+        grid_blocks,
+        strided_probe,
+        strided_probe_plain,
+    )
 
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(13)
     fast = torch.randn((512, PROBE_PAGE_ELEMS), generator=g).to(dev)
     slow = torch.randn((512, PROBE_PAGE_ELEMS), generator=g).pin_memory()
     worst = 0.0
+
+    def case(what, fast, slow, nf, ns, ai, bulk=True):
+        nonlocal worst
+        width = fast.shape[1]
+        fi = torch.randint(0, fast.shape[0], (nf,), generator=g)
+        si = torch.randint(0, slow.shape[0], (ns,), generator=g)
+        addresses = [_build.device_address("strided_probe", p) for p in (fast, slow)]
+        check(bulk_reads(addresses, [fast.stride(0), slow.stride(0)], width) == bulk,
+              f"strided_probe {what}: expected the "
+              f"{'TMA' if bulk else 'plain-load'} branch")
+        got = strided_probe(fast, slow, fi, si, ai)
+        torch.cuda.synchronize()
+        want = strided_probe_plain(fast, slow, fi, si, ai, dtype=torch.float64)
+        terms = strided_probe_plain(fast.abs(), slow.abs(), fi, si, ai,
+                                    dtype=torch.float64)
+        err = (got.double() - want).abs()
+        worst = max(worst, float(err.max()))
+        check(got.shape == (1, width) and bool(
+            (err <= probe_tolerance(terms, ai, nf + ns, sm, width)).all()),
+              f"strided_probe {what} ai={ai} nf={nf} ns={ns}: error "
+              f"{float(err.max())} beyond its rounding bound")
+        return fi, si
+
     for ai in (0, 1, 7, 64):
         for nf, ns in ((40, 30), (0, 9), (9, 0), (3000, 1000)):
-            fi = torch.randint(0, 512, (nf,), generator=g)
-            si = torch.randint(0, 512, (ns,), generator=g)
-            got = strided_probe(fast, slow, fi, si, ai)
-            torch.cuda.synchronize()
-            want = strided_probe_plain(fast, slow, fi, si, ai, dtype=torch.float64)
-            terms = strided_probe_plain(fast.abs(), slow.abs(), fi, si, ai,
-                                        dtype=torch.float64)
-            err = (got.double() - want).abs()
-            worst = max(worst, float(err.max()))
-            check(bool((err <= probe_tolerance(terms, ai, nf + ns, sm)).all()),
-                  f"strided_probe ai={ai} nf={nf} ns={ns}: error "
-                  f"{float(err.max())} beyond its rounding bound")
+            case("1,024-float rows", fast, slow, nf, ns, ai)
+    for width, bulk in ((1000, True), (1001, False)):
+        f = torch.randn((64, width), generator=g).to(dev)
+        s = torch.randn((64, width), generator=g).pin_memory()
+        for ai in (1, 64):
+            case(f"{width}-float rows", f, s, 400, 300, ai, bulk)
+    flat = torch.randn(512 * PROBE_PAGE_ELEMS + 1, generator=g).to(dev)
+    shifted = flat[1:].view(512, PROBE_PAGE_ELEMS)
+    for ai in (1, 64):
+        case("base one float past alignment", shifted, slow, 300, 200, ai, False)
+    grid = grid_blocks(10**6, PROBE_PAGE_ELEMS, sm)
+    for n in (grid - 1, grid + 1):
+        case(f"{n} pages", fast, slow, n // 2, n - n // 2, 7)
+    case("one fast page", fast, slow, 1, 0, 64)
+    case("one slow page", fast, slow, 0, 1, 64)
+    fi, si = case("4,000 pages", fast, slow, 2000, 2000, 64)
+    first = strided_probe(fast, slow, fi, si, 64)
+    for run in range(20):
+        again = strided_probe(fast, slow, fi, si, 64)
+        check(torch.equal(again, first),
+              f"strided_probe 4,000 pages, run {run} of 20, differs from the first")
     return worst
 
 
@@ -879,9 +979,10 @@ def serving_full_width(dev, capture: dict) -> dict:
 
     device_us = sum(e.device_time_total for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    migrate_us = sum(e.device_time_total for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "migrate_kernel" in e.name)
+    traced = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "migrate_kernel" in e.name]
+    migrate_us = sum(e.device_time_total for e in traced)
 
     # --- every page's content survived, in host memory and, for resident
     # pages, in its HBM slot
@@ -916,6 +1017,9 @@ def serving_full_width(dev, capture: dict) -> dict:
         "device_ms_per_round": device_us / 1e3 / SERVE_ROUNDS,
         "device_busy_share": device_us / 1e6 / wall_s,
         "migrate_kernel_ms_total": migrate_us / 1e3,
+        # launches the trace holds; fewer than migrate_pages_launches means
+        # the total above misses some
+        "migrate_kernel_launches_traced": len(traced),
         "pages_in": s["migrated_in"], "pages_out": s["migrated_out"],
         "gb_in": s["migrated_in"] * page_b / 1e9,
         "gb_out": s["migrated_out"] * page_b / 1e9,
@@ -972,7 +1076,7 @@ def time_migrate(dev, capture: dict) -> dict:
         bound = n * page_b / PCIE_BYTES_PER_S * 1e3
         out[way] = {"pages": n, "bytes": n * page_b, "ms": ms, "device_ms": device_ms,
                     "plain_ms": plain_ms, "bound_ms": bound,
-                    "gb_per_s": n * page_b / device_ms / 1e6,
+                    "gb_per_s": n * page_b / device_ms / 1e6 if device_ms else None,
                     "copy_engine_ms": ce_ms, "copy_engine_device_ms": ce_device_ms,
                     "copy_engine_gb_per_s": n * page_b / ce_device_ms / 1e6}
     di = capture["promote"][0]
@@ -1099,7 +1203,9 @@ def probe_tiers(dev) -> dict:
     slow only and half of each, at ai_iters 1 and 64. All six are driven
     once with the launch count set to 0 before and read after, then each
     is checked against the float64 plain version and timed. The per-tier
-    GB/s at ai_iters 1 is the micro-benchmark's reading of the two tiers."""
+    GB/s at ai_iters 1 is the micro-benchmark's reading of the two tiers; the
+    copy engines' GB/s for one contiguous 0.5 GiB pinned block into HBM is
+    printed beside it, as the tier's yardstick."""
     import torch
 
     from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
@@ -1140,25 +1246,43 @@ def probe_tiers(dev) -> dict:
               f"strided_probe {mix} ai={ai}: error {float(err.max())} beyond its bound")
         del want, terms
         ms = cuda_ms(lambda: strided_probe(fast, slow, *idx[mix], ai), repeats=10)
+        call = lambda: strided_probe(fast, slow, *idx[mix], ai)  # noqa: E731
+        device_ms = profiled_ms(call, "probe_kernel", "combine_kernel", calls=5)
+        batch_ms = batched_ms(call, calls=5)
         fb, sb = fi.numel() * page_b, si.numel() * page_b
         bytes_ms = max(fb / HBM_BYTES_PER_S, sb / PCIE_BYTES_PER_S) * 1e3
         ops_ms = 2 * ai * (fi.numel() + si.numel()) * PROBE_PAGE_ELEMS / ALU_OPS_PER_S * 1e3
         rows[f"{mix}_ai{ai}"] = {
-            "ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+            "ms": ms, "device_ms": device_ms, "batch_ms": batch_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "gb_per_s": (fb + sb) / ms / 1e6, "max_abs_err": float(err.max()),
+            "gb_per_s": (fb + sb) / ms / 1e6,
+            "batch_gb_per_s": (fb + sb) / batch_ms / 1e6,
+            "max_abs_err": float(err.max()),
         }
     del fast_abs, slow_abs
+    # the copy engines' reading of the host tier, as a yardstick: one copy_
+    # of a contiguous 0.5 GiB pinned block into HBM (not the probe's function)
+    block = slow[:half]
+    dst = torch.empty_like(block, device=dev)
+    engine_ms = cuda_ms(lambda: dst.copy_(block, non_blocking=True), repeats=5)
+    engine_gb_per_s = block.numel() * 4 / engine_ms / 1e6
+    del dst
     fi, si = mixes["mixed"]
     plain_ms = cuda_ms(lambda: strided_probe_plain(fast, slow, fi, si, 64),
                        repeats=3, warmup=1)
     main = rows["mixed_ai64"]
     return {
         "launches": launches, "max_abs_err": worst, "ms": main["ms"],
+        "device_ms": main["device_ms"], "batch_ms": main["batch_ms"],
         "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
         "hbm_gb_per_s": rows["fast_ai1"]["gb_per_s"],
         "host_gb_per_s": rows["slow_ai1"]["gb_per_s"],
+        "host_batch_gb_per_s": rows["slow_ai1"]["batch_gb_per_s"],
+        "copy_engine_host_gb_per_s": engine_gb_per_s,
+        "copy_engine_ms_half_gib": engine_ms,
+        "registers": ptxas_registers("strided_probe"),
         "cases": rows,
     }
 
@@ -1209,35 +1333,64 @@ def flash_checks(dev) -> float:
 def wkv6_checks(dev) -> float:
     """wkv6 == its plain version: o within 3e-4 (float32 r, k, v) or 2e-2
     (bfloat16 r, k, v beside float32 w, as the model passes them), the
-    float32 state within 3e-4; S not a multiple of the kernel's 16-token
-    chunk, hd in {16, 32, 64, 128}. Returns the largest absolute
+    float32 state within 3e-4; S not a multiple of the kernel's 32-token
+    chunk, hd in {16, 32, 64, 128}, each with its columns split over more
+    than one block; strong decays (w = exp(-exp(randn + 2)), many under
+    1e-3); S = 1, 15, 17 and 2,048 at 40 heads of 64; and one call 10 times
+    over, bit-identical each time. Returns the largest absolute
     difference."""
     import torch
 
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6 import HEAD_DIMS, wkv6, wkv6_grid, wkv6_plain
 
+    sm = _build.sm_count(dev.index or 0)
     g = torch.Generator().manual_seed(22)
     worst = 0.0
-    cases = [  # B, S, H, hd, dtype of r, k, v
-        (2, 64, 2, 32, torch.float32), (1, 100, 4, 64, torch.float32),
-        (2, 32, 2, 16, torch.float32), (1, 17, 2, 128, torch.float32),
-        (2, 37, 3, 64, torch.bfloat16), (1, 300, 40, 64, torch.bfloat16),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # B, S, H, hd, dtype of r, k, v, decay bias
+        (2, 64, 2, 32, f32, -4.0), (1, 100, 4, 64, f32, -4.0),
+        (2, 32, 2, 16, f32, -4.0), (1, 17, 2, 128, f32, -4.0),
+        (2, 37, 3, 64, bf16, -4.0), (1, 300, 40, 64, bf16, -4.0),
+        (2, 64, 4, 64, bf16, 2.0), (1, 100, 2, 32, f32, 2.0),
+        (1, 40, 2, 128, f32, 2.0), (1, 33, 2, 16, f32, 2.0),
+        (2, 50, 4, 128, bf16, -4.0), (2, 45, 3, 16, bf16, -4.0),
+        (1, 1, 40, 64, bf16, -4.0), (1, 15, 40, 64, bf16, -4.0),
+        (1, 17, 40, 64, bf16, 2.0), (1, 2048, 40, 64, bf16, -4.0),
     ]
-    for B, S, H, hd, dtype in cases:
+    split = set()
+
+    def inputs(B, S, H, hd, dtype, bias):
         r, k, v = ((torch.randn((B, S, H, hd), generator=g) * 0.5).to(dtype).to(dev)
                    for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn((B, S, H, hd), generator=g) * 0.5 - 4.0)).to(dev)
+        scale = 0.5 if bias < 0 else 1.0
+        w = torch.exp(-torch.exp(torch.randn((B, S, H, hd), generator=g) * scale
+                                 + bias)).to(dev)
         u = (torch.randn((H, hd), generator=g) * 0.3).to(dev)
+        return r, k, v, w, u
+
+    for B, S, H, hd, dtype, bias in cases:
+        r, k, v, w, u = inputs(B, S, H, hd, dtype, bias)
+        if wkv6_grid(hd, B * H, sm)[1] > 1:
+            split.add(hd)
         o, st = wkv6(r, k, v, w, u)
         torch.cuda.synchronize()
         o_want, st_want = wkv6_plain(r, k, v, w, u)
-        tol = 3e-4 if dtype == torch.float32 else 2e-2
-        d_o = float((o.float() - o_want.float()).abs().max())
+        tol = 3e-4 if dtype == f32 else 2e-2
+        d_o = float((o.float() - o_want.float()).abs().max()) if S else 0.0
         d_s = float((st - st_want).abs().max())
         worst = max(worst, d_o, d_s)
         check(torch.allclose(o.float(), o_want.float(), rtol=tol, atol=tol)
               and torch.allclose(st, st_want, rtol=3e-4, atol=3e-4),
-              f"wkv6 {dtype} {(B, S, H, hd)}: max |diff| o {d_o}, state {d_s}")
+              f"wkv6 {dtype} {(B, S, H, hd)} decay bias {bias}: max |diff| o "
+              f"{d_o}, state {d_s}")
+    check(split == set(HEAD_DIMS), f"wkv6: columns split only at hd {sorted(split)}")
+    args = inputs(2, 300, 40, 64, bf16, 2.0)
+    o1, st1 = wkv6(*args)
+    for run in range(10):
+        o, st = wkv6(*args)
+        check(torch.equal(o, o1) and torch.equal(st, st1),
+              f"wkv6 run {run} of 10 differs from the first")
     return worst
 
 
@@ -1381,10 +1534,11 @@ def serve_model(name: str, dev, capture: dict) -> dict:
         fns["prefill"](params, tokens)
         torch.cuda.synchronize()
     prefill_device_ms = _device_us(prof) / 1e3
-    kernel_device_ms = sum(e.device_time_total for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA
-                           and any(n in e.name for n in ("flash_mma_kernel", "flash_fma_kernel",
-                                                             "wkv6_kernel"))) / 1e3
+    traced = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(n in e.name for n in ("flash_mma_kernel", "flash_fma_kernel",
+                                            "wkv6_kernel"))]
+    kernel_device_ms = sum(e.device_time_total for e in traced) / 1e3
     del prof
     t = time.perf_counter()
     again = fns["prefill"](params, tokens)
@@ -1464,6 +1618,7 @@ def serve_model(name: str, dev, capture: dict) -> dict:
         "prefill_device_ms": prefill_device_ms,
         "prefill_device_busy_share": prefill_device_ms / 1e3 / prefill_s,
         "prefill_kernel_device_ms": kernel_device_ms,
+        "prefill_kernel_launches_traced": len(traced),
         "prefill_repeat_max_abs_diff": repeat_diff,
         "launches": launches,
         "kernel_vs_plain_path": path,
@@ -1546,7 +1701,8 @@ def time_wkv6(capture: dict) -> dict:
     version and its bound (no PyTorch call computes the recurrence)."""
     import torch
 
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_grid, wkv6_plain
 
     (r, k, v, w, u), _ = capture["wkv6"]
     B, S, H, hd = r.shape
@@ -1559,6 +1715,8 @@ def time_wkv6(capture: dict) -> dict:
           f"wkv6 on the serving inputs: max |diff| {err}")
     del o, st, o_want, st_want
     ms = cuda_ms(lambda: wkv6(r, k, v, w, u), repeats=20)
+    device_ms = profiled_ms(lambda: wkv6(r, k, v, w, u), "wkv6_kernel")
+    batch_ms = batched_ms(lambda: wkv6(r, k, v, w, u))
     plain_ms = cuda_ms(lambda: wkv6_plain(r, k, v, w, u), repeats=3, warmup=1)
     # a multiply and two FMAs per (token, i, j): 5 flops, float32 outside
     # the tensor cores
@@ -1568,12 +1726,15 @@ def time_wkv6(capture: dict) -> dict:
     ops_ms = flops / ALU_OPS_PER_S * 1e3
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
     return {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms, "batch_ms": batch_ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
         "shape": {"B": B, "S": S, "H": H, "hd": hd, "rkv_dtype": str(r.dtype)},
         "gflop": flops / 1e9, "bytes": io_bytes,
+        "grid": dict(zip(("columns_a_block", "column_slices"),
+                         wkv6_grid(hd, B * H, _build.sm_count(r.device.index or 0)))),
+        "registers": ptxas_registers("wkv6"),
     }
 
 
@@ -1614,10 +1775,10 @@ def main() -> int:
     t = time.perf_counter()
     libs = _build.build()
     log(f"== 1 build: {len(libs)} source(s) in {time.perf_counter() - t:.2f} s")
-    for name, out in _build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"   {name}: {line.strip()}")
+    for name in _build.build_log:
+        for k in ptxas_registers(name):
+            log(f"   {name}: {k['kernel']}: {k['registers']} registers, "
+                f"{k['spill_bytes']} bytes spilled")
 
     t = time.perf_counter()
     worst = kernel_checks(dev)
@@ -1736,7 +1897,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/strided_probe.cu",
         "replaces": "src/repro/kernels/strided_probe.py:73",
         **{k: probe[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "bound_by", "library_ms")},
+                                 "bound_ms", "bound_by", "library_ms", "device_ms",
+                                 "batch_ms", "host_gb_per_s",
+                                 "copy_engine_host_gb_per_s")},
         "case": "mixed, ai_iters 64",
     }, {
         "name": "paged_decode_attention",
@@ -1760,7 +1923,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6_chunk.py:106",
         "launches": served["rwkv6-3b"]["launches"]["wkv6"],
         "max_abs_err": max(wkv6_err, wk["max_abs_err"]),
-        **{k: wk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: wk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "device_ms", "batch_ms")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

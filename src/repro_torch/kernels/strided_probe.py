@@ -33,11 +33,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-# blocks the kernel aims to have in flight per SM (segments are cut to it)
-_BLOCKS_PER_SM = 16
-# fewest pages a segment walks, so partial rows stay a small share of reads
-_MIN_SEGMENT_PAGES = 32
-_COLUMNS_PER_BLOCK = 256  # kThreads of csrc/strided_probe.cu
+# blocks of the persistent grid per SM: three 64 KiB TMA rings fit an SM
+BLOCKS_PER_SM = 3
+CHUNK = 1024  # floats a ring stage holds (kChunk of csrc/strided_probe.cu)
 _C = float(np.float32(1.000001))  # the probe's multiplier, as float32
 
 
@@ -69,15 +67,38 @@ def _indices(idx) -> torch.Tensor:
     return torch.from_numpy(np.asarray(idx, dtype=np.int64).reshape(-1))
 
 
-def segments(n_pages: int, page_elems: int, sm_count: int) -> int:
-    """Pages per segment for ``n_pages`` pages of ``page_elems`` columns on
-    a card with ``sm_count`` SMs: enough segments for about
-    ``_BLOCKS_PER_SM`` blocks an SM, none shorter than
-    ``_MIN_SEGMENT_PAGES`` pages (unless there are fewer pages)."""
-    col_blocks = -(-page_elems // _COLUMNS_PER_BLOCK)
-    want = max(1, -(-sm_count * _BLOCKS_PER_SM // col_blocks))
-    n_seg = max(1, min(want, n_pages // _MIN_SEGMENT_PAGES, 65535))
-    return -(-n_pages // n_seg)
+def grid_blocks(n_pages: int, page_elems: int, sm_count: int) -> int:
+    """Blocks G of the kernel's persistent grid that walk the page list (each
+    for every ``CHUNK``-float chunk of a page): about ``BLOCKS_PER_SM`` blocks
+    an SM in all, never more than there are pages, at least one."""
+    chunks = -(-page_elems // CHUNK)
+    return max(1, min(n_pages, BLOCKS_PER_SM * sm_count // chunks))
+
+
+def block_pages(n_pages: int, grid: int) -> list[np.ndarray]:
+    """Positions in the page list that block ``b`` of ``grid`` walks, in its
+    order: ``b, b + grid, b + 2 grid, ...``."""
+    return [np.arange(b, n_pages, grid) for b in range(min(grid, n_pages))]
+
+
+def chain_length(n_pages: int, page_elems: int, sm_count: int) -> int:
+    """Additions on the longest path of one column's sum in the kernel: a
+    block adds its ``ceil(n / G)`` page results in page order, then the G
+    partial rows are added in block order. The float32 rounding bound
+    against float64 is ``(ai_iters + chain + 2) * 2**-24 * sum(|terms|)``."""
+    if n_pages == 0:
+        return 0
+    grid = grid_blocks(n_pages, page_elems, sm_count)
+    return -(-n_pages // grid) + grid
+
+
+def bulk_reads(addresses, row_strides, page_elems: int) -> bool:
+    """Whether the kernel reads pages by TMA: every pool base (``addresses``,
+    in bytes) 16-byte aligned, and every row stride (``row_strides``) and
+    the page width multiples of 4 floats. Otherwise it takes its plain-load
+    branch."""
+    return (all(a % 16 == 0 for a in addresses)
+            and all(s % 4 == 0 for s in row_strides) and page_elems % 4 == 0)
 
 
 def _launch(fast_pool, slow_pool, fast_idx, slow_idx, ai_iters) -> torch.Tensor:
@@ -106,27 +127,27 @@ def _launch(fast_pool, slow_pool, fast_idx, slow_idx, ai_iters) -> torch.Tensor:
             raise IndexError(f"{what} outside [0, {pool.shape[0]})")
     fi = _build.to_device(fast_idx, dev) if nf else torch.zeros(1, dtype=torch.int64, device=dev)
     si = _build.to_device(slow_idx, dev) if ns else torch.zeros(1, dtype=torch.int64, device=dev)
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_seg = segments(nf + ns, page_elems, sm_count)
-    n_seg = -(-(nf + ns) // per_seg)
+    grid = grid_blocks(nf + ns, page_elems, _build.sm_count(dev.index or 0))
     partial = (
-        torch.empty((n_seg, page_elems), dtype=torch.float32, device=dev)
-        if n_seg > 1 else out
+        torch.empty((grid, page_elems), dtype=torch.float32, device=dev)
+        if grid > 1 else out
     )
     fn = _build.function("strided_probe", "strided_probe_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ])
+    addresses = [_build.device_address("strided_probe", p)
+                 for p in (fast_pool, slow_pool)]
+    strides = [fast_pool.stride(0), slow_pool.stride(0)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
-            _build.device_address("strided_probe", fast_pool),
-            _build.device_address("strided_probe", slow_pool),
-            fi.data_ptr(), si.data_ptr(), nf, ns, page_elems,
-            fast_pool.stride(0), slow_pool.stride(0), max(0, int(ai_iters)),
-            per_seg, partial.data_ptr(), out.data_ptr(), stream,
+            *addresses, fi.data_ptr(), si.data_ptr(), nf, ns, page_elems,
+            *strides, max(0, int(ai_iters)), grid,
+            int(bulk_reads(addresses, strides, page_elems)),
+            partial.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"strided_probe kernel launch failed: CUDA error {rc}")

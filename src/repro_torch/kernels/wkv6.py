@@ -11,7 +11,9 @@ float32). There is no fallback from one to the other.
 
 The kernel keeps the recurrence sequential, so it is exact for any decay;
 the TPU kernel's chunked form divides by cumulative decays clamped at
-1e-30 instead.
+1e-30 instead. Its grid splits each state's columns into slices, one block
+a (batch, head, slice), and each column's rows over lanes of one warp:
+:func:`wkv6_grid` sizes both.
 
 Bound: operations on a dependent chain of tokens (about 6.7 GFLOP a layer
 at RWKV6-3B's 4 x 2,048-token prefill, 0.10 ms at 67 TFLOP/s of float32);
@@ -28,6 +30,26 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# blocks the kernel's grid aims at per SM, by splitting the state's columns
+BLOCKS_PER_SM = 2
+MAX_THREADS = 256  # kMaxThreads of csrc/wkv6.cu
+ROW_GROUPS = 8  # lanes of one warp that share a column group (kGroups)
+COLUMNS_PER_LANE = 2  # kCols of csrc/wkv6.cu
+MIN_COLUMNS = 8  # a slice's v row is at least one 16-byte cp.async piece
+
+
+def wkv6_grid(hd: int, heads: int, sm_count: int) -> tuple[int, int]:
+    """``(columns a block, column slices a head)`` of the kernel's launch
+    for ``heads`` (batch x heads) state matrices of ``hd`` columns on
+    ``sm_count`` SMs. ``ROW_GROUPS`` lanes share each group of
+    ``COLUMNS_PER_LANE`` columns, ``hd / ROW_GROUPS`` rows each. The slices
+    are the fewest whose blocks fit ``MAX_THREADS`` threads, doubled while
+    the grid is short of ``BLOCKS_PER_SM`` blocks an SM and a slice keeps
+    ``MIN_COLUMNS`` columns."""
+    slices = max(1, hd // COLUMNS_PER_LANE * ROW_GROUPS // MAX_THREADS)
+    while heads * slices < BLOCKS_PER_SM * sm_count and hd // (2 * slices) >= MIN_COLUMNS:
+        slices *= 2
+    return hd // slices, slices
 
 
 def wkv6_plain(r, k, v, w, u):
@@ -70,19 +92,23 @@ def _launch(r, k, v, w, u):
     for name, t in (("k", k), ("v", v), ("w", w), ("u", u)):
         if t.device != r.device:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
-    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    # the kernel stages r, k, v and w by 16-byte copies
+    r, k, v, w, u = (t.contiguous() if t.data_ptr() % 16 == 0
+                     else t.clone(memory_format=torch.contiguous_format)
+                     for t in (r, k, v, w, u))
     o = torch.empty_like(r)
     state = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if B == 0 or H == 0:
         return o, state
+    cols, _ = wkv6_grid(hd, B * H, _build.sm_count(r.device.index or 0))
     fn = _build.function("wkv6", "wkv6_launch", [
-        *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 5, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 6, ctypes.c_void_p,
     ])
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), o.data_ptr(), state.data_ptr(), _DTYPES[r.dtype],
-                B, S, H, hd, stream)
+                B, S, H, hd, cols, stream)
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")
     wkv6.launches += 1

@@ -28,14 +28,21 @@ from repro_torch.kernels.paged_attention import (
     paged_decode_attention_plain,
     paged_decode_attention_split_plain,
 )
-from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
+from repro_torch.kernels import _build
+from repro_torch.kernels.strided_probe import (
+    bulk_reads,
+    chain_length,
+    grid_blocks,
+    strided_probe,
+    strided_probe_plain,
+)
 from repro_torch.kernels.victim_partition import (
     TILE,
     victim_partition,
     victim_partition_plain,
     victim_partition_tiled_plain,
 )
-from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+from repro_torch.kernels.wkv6 import wkv6, wkv6_grid, wkv6_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -198,11 +205,74 @@ def test_strided_probe_matches_float64(cuda, ai_iters, nf, ns):
     got = strided_probe(fast, slow, fi, si, ai_iters)
     torch.cuda.synchronize()
     want = strided_probe_plain(fast, slow, fi, si, ai_iters, dtype=torch.float64)
-    # each term takes ai_iters roundings, the sum at most nf + ns more
+    _probe_within_bound(got, fast, slow, fi, si, ai_iters)
+
+
+def _probe_within_bound(got, fast, slow, fi, si, ai_iters):
+    # each term takes ai_iters roundings, the sum at most chain_length more
+    # (a block's pages in order, then the blocks' partial rows)
+    want = strided_probe_plain(fast, slow, fi, si, ai_iters, dtype=torch.float64)
     terms = strided_probe_plain(fast.abs(), slow.abs(), fi, si, ai_iters,
                                 dtype=torch.float64)
-    tol = (ai_iters + nf + ns + 2) * 2.0**-24 * terms
+    chain = chain_length(fi.numel() + si.numel(), fast.shape[1],
+                         _build.sm_count(torch.cuda.current_device()))
+    tol = (ai_iters + chain + 2) * 2.0**-24 * terms
+    assert got.shape == (1, fast.shape[1])
     assert bool(((got.double() - want).abs() <= tol).all())
+
+
+def _probe_pools(cuda, width, seed, rows=64):
+    g = torch.Generator().manual_seed(seed)
+    fast = torch.randn((rows, width), generator=g).to(cuda)
+    slow = torch.randn((rows, width), generator=g).pin_memory()
+    return g, fast, slow
+
+
+@pytest.mark.parametrize("ai_iters", [1, 64])
+@pytest.mark.parametrize("width,shift,bulk", [
+    (1000, 0, True),    # 4,000-byte rows: TMA
+    (1001, 0, False),   # 4,004-byte rows: the plain-load branch
+    (1024, 1, False),   # a fast pool one float past alignment (a sliced view)
+])
+def test_strided_probe_row_widths_and_alignment(cuda, ai_iters, width, shift, bulk):
+    g, fast, slow = _probe_pools(cuda, width, width + shift)
+    if shift:
+        flat = torch.randn(64 * width + shift, generator=g).to(cuda)
+        fast = flat[shift:].view(64, width)
+    addresses = [_build.device_address("strided_probe", p) for p in (fast, slow)]
+    assert bulk_reads(addresses, [fast.stride(0), slow.stride(0)], width) is bulk
+    fi = torch.randint(0, 64, (400,), generator=g)
+    si = torch.randint(0, 64, (300,), generator=g)
+    got = strided_probe(fast, slow, fi, si, ai_iters)
+    torch.cuda.synchronize()
+    _probe_within_bound(got, fast, slow, fi, si, ai_iters)
+
+
+@pytest.mark.parametrize("where", ["one_below_grid", "one_above_grid",
+                                   "one_fast_page", "one_slow_page"])
+def test_strided_probe_page_counts_around_the_grid(cuda, where):
+    g, fast, slow = _probe_pools(cuda, 1024, 7)
+    grid = grid_blocks(10**6, 1024, _build.sm_count(torch.cuda.current_device()))
+    nf, ns = {"one_below_grid": ((grid - 1) // 2, grid - 1 - (grid - 1) // 2),
+              "one_above_grid": ((grid + 1) // 2, grid + 1 - (grid + 1) // 2),
+              "one_fast_page": (1, 0), "one_slow_page": (0, 1)}[where]
+    fi = torch.randint(0, 64, (nf,), generator=g)
+    si = torch.randint(0, 64, (ns,), generator=g)
+    got = strided_probe(fast, slow, fi, si, 7)
+    torch.cuda.synchronize()
+    _probe_within_bound(got, fast, slow, fi, si, 7)
+
+
+def test_strided_probe_repeats_bit_identical(cuda):
+    # a wrong mbarrier phase reads a stale ring stage only now and then
+    g, fast, slow = _probe_pools(cuda, 1024, 11, rows=512)
+    fi = torch.randint(0, 512, (2000,), generator=g).to(cuda)
+    si = torch.randint(0, 512, (2000,), generator=g).to(cuda)
+    first = strided_probe(fast, slow, fi, si, 64)
+    torch.cuda.synchronize()
+    _probe_within_bound(first, fast, slow, fi.cpu(), si.cpu(), 64)
+    for _ in range(20):
+        assert torch.equal(strided_probe(fast, slow, fi, si, 64), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -301,11 +371,22 @@ def test_flash_attention_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal):
 @pytest.mark.parametrize("B,S,H,hd", [(2, 64, 2, 32), (1, 100, 4, 64), (2, 32, 2, 16),
                                       (1, 19, 2, 128), (2, 300, 8, 64)])
 def test_wkv6_matches_plain(cuda, dtype, B, S, H, hd):
-    g = torch.Generator().manual_seed(S * H + hd)
+    _wkv6_matches_plain(cuda, dtype, B, S, H, hd)
+
+
+def _wkv6_inputs(cuda, dtype, B, S, H, hd, strong=False):
+    g = torch.Generator().manual_seed(S * H + hd + strong)
     r, k, v = ((torch.randn((B, S, H, hd), generator=g) * 0.5).to(dtype).to(cuda)
                for _ in range(3))
-    w = torch.exp(-torch.exp(torch.randn((B, S, H, hd), generator=g) * 0.5 - 4.0)).to(cuda)
+    x = torch.randn((B, S, H, hd), generator=g)
+    # strong decays: exp(-exp(x + 2)), many under 1e-3
+    w = torch.exp(-torch.exp(x + 2.0 if strong else x * 0.5 - 4.0)).to(cuda)
     u = (torch.randn((H, hd), generator=g) * 0.3).to(cuda)
+    return r, k, v, w, u
+
+
+def _wkv6_matches_plain(cuda, dtype, B, S, H, hd, strong=False):
+    r, k, v, w, u = _wkv6_inputs(cuda, dtype, B, S, H, hd, strong)
     before = wkv6.launches
     o, state = wkv6(r, k, v, w, u)
     torch.cuda.synchronize()
@@ -315,6 +396,32 @@ def test_wkv6_matches_plain(cuda, dtype, B, S, H, hd):
     assert o.dtype == dtype and state.dtype == torch.float32
     assert torch.allclose(o.float(), o_want.float(), rtol=tol, atol=tol)
     assert torch.allclose(state, state_want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv6_strong_decays(cuda, dtype, hd):
+    _wkv6_matches_plain(cuda, dtype, 2, 45, 3, hd, strong=True)
+
+
+@pytest.mark.parametrize("S", [1, 15, 17, 2048])
+def test_wkv6_sequence_lengths_at_rwkv6_3b_heads(cuda, S):
+    _wkv6_matches_plain(cuda, torch.bfloat16, 1, S, 40, 64)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv6_every_head_size_with_its_columns_split(cuda, hd):
+    B, H = 2, 3
+    assert wkv6_grid(hd, B * H, _build.sm_count(torch.cuda.current_device()))[1] > 1
+    _wkv6_matches_plain(cuda, torch.bfloat16, B, 70, H, hd)
+
+
+def test_wkv6_repeats_bit_identical(cuda):
+    args = _wkv6_inputs(cuda, torch.bfloat16, 2, 300, 40, 64, strong=True)
+    o1, s1 = wkv6(*args)
+    for _ in range(10):
+        o, s = wkv6(*args)
+        assert torch.equal(o, o1) and torch.equal(s, s1)
 
 
 def test_wkv6_refuses_a_bf16_decay(cuda):

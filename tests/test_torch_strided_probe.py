@@ -11,7 +11,11 @@ import torch
 from repro.kernels import ref
 from repro.kernels.strided_probe import strided_probe as pallas_probe
 from repro_torch.kernels.strided_probe import (
-    segments,
+    BLOCKS_PER_SM,
+    block_pages,
+    bulk_reads,
+    chain_length,
+    grid_blocks,
     strided_probe,
     strided_probe_plain,
 )
@@ -72,7 +76,36 @@ def test_float64_plain_version_and_segments():
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), _ref(FP, SP, [0, 3], [1], 7),
                                rtol=1e-5, atol=1e-5)
-    # 2**18 pages of 1,024 floats on 132 SMs: 4 column blocks, ~528 segments
-    per = segments(262_144, 1024, 132)
-    assert -(-262_144 // per) <= 528 and per >= 32
-    assert segments(10, 1024, 132) == 10  # too few pages to split
+    # 2**18 pages of 1,024 floats on 132 SMs: 396 blocks of 662 pages at
+    # most, whose partial rows are then added: a chain of 1,058 additions
+    assert grid_blocks(262_144, 1024, 132) == BLOCKS_PER_SM * 132 == 396
+    assert chain_length(262_144, 1024, 132) == 662 + 396
+    # pages of two chunks share the SMs' blocks between the chunks
+    assert grid_blocks(262_144, 2048, 132) == 198
+    assert grid_blocks(10, 1024, 132) == 10  # one page a block
+
+
+GRID = grid_blocks(262_144, 1024, 132)
+
+
+@pytest.mark.parametrize("n_pages", [0, 1, GRID - 1, GRID + 1, 262_144])
+def test_blocks_cover_every_page_once(n_pages):
+    grid = grid_blocks(n_pages, 1024, 132)
+    blocks = block_pages(n_pages, grid)
+    assert len(blocks) == min(grid, n_pages)
+    walked = np.concatenate(blocks) if blocks else np.zeros(0, np.int64)
+    np.testing.assert_array_equal(np.sort(walked), np.arange(n_pages))
+    for b, pages in enumerate(blocks):  # block b walks b, b + G, ... in order
+        np.testing.assert_array_equal(pages, b + grid * np.arange(len(pages)))
+    longest = max((len(pages) for pages in blocks), default=0)
+    assert chain_length(n_pages, 1024, 132) == (longest + grid if n_pages else 0)
+
+
+@pytest.mark.parametrize("addresses,strides,page_elems,bulk", [
+    ((0, 4096), (1000, 1000), 1000, True),   # 4,000-byte rows: TMA
+    ((0, 4096), (1001, 1001), 1001, False),  # 4,004-byte rows: plain loads
+    ((4, 4096), (1024, 1024), 1024, False),  # a base one float past alignment
+    ((0, 4096), (1026, 1024), 1024, False),  # a stride of 4,104 bytes
+])
+def test_bulk_reads_need_16_byte_alignment(addresses, strides, page_elems, bulk):
+    assert bulk_reads(addresses, strides, page_elems) is bulk

@@ -12,7 +12,15 @@ import torch
 from repro.kernels import ref
 from repro.kernels.rwkv6_chunk import wkv6_chunked
 from repro_torch.kernels import ops
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.wkv6 import (
+    BLOCKS_PER_SM,
+    COLUMNS_PER_LANE,
+    MAX_THREADS,
+    MIN_COLUMNS,
+    ROW_GROUPS,
+    wkv6,
+    wkv6_grid,
+)
 
 RNG = np.random.default_rng(0)
 
@@ -79,3 +87,22 @@ def test_other_devices_are_refused():
     t = torch.zeros((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         wkv6(t, t, t, t, torch.zeros((2, 16), device="meta"))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv6_grid_splits_columns_and_rows(hd):
+    for heads in (1, 8, 160, 100_000):
+        cols, slices = wkv6_grid(hd, heads, 132)
+        assert cols * slices == hd and cols >= MIN_COLUMNS
+        # a column pair's row groups are consecutive lanes of one warp, and a
+        # block is whole warps of at most MAX_THREADS threads
+        assert 32 % ROW_GROUPS == 0 and hd % ROW_GROUPS == 0
+        threads = cols // COLUMNS_PER_LANE * ROW_GROUPS
+        assert threads % 32 == 0 and threads <= MAX_THREADS
+        # slices are added only while the grid is short of blocks
+        if slices > max(1, hd // COLUMNS_PER_LANE * ROW_GROUPS // MAX_THREADS):
+            assert heads * slices // 2 < BLOCKS_PER_SM * 132
+    # small grids (the card tests' shapes) split every head size's columns
+    assert wkv6_grid(hd, 8, 132)[1] > 1
+    if hd == 64:  # RWKV6-3B's prefill: 4 x 40 heads, 320 blocks of 4 warps
+        assert wkv6_grid(64, 160, 132) == (32, 2)
