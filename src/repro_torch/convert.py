@@ -50,6 +50,10 @@ def trace_dict(trace) -> dict:
                 "pages": np.asarray(ia.pages),
                 "counts": np.asarray(ia.counts),
                 "touches": np.asarray(ia.touches),
+                "writes": (
+                    None if getattr(ia, "writes", None) is None
+                    else np.asarray(ia.writes)
+                ),
                 "ops": float(ia.ops),
                 "rand_frac": float(ia.rand_frac),
             }
@@ -71,6 +75,7 @@ def trace_from_dict(d: dict) -> Trace:
                 ops=iv["ops"],
                 rand_frac=iv.get("rand_frac", 1.0),
                 touches=iv.get("touches"),
+                writes=iv.get("writes"),
             )
             for iv in d["intervals"]
         ],

@@ -3,15 +3,17 @@
 Micro-benchmark execution records — one per configuration vector, holding
 the micro-benchmark's times across a sweep of fast-memory sizes — behind a
 nearest-neighbour index over the 8-dimensional configuration space (HNSW
-over numpy, as in :mod:`repro.core.perfdb`, with a brute-force oracle).
-Persistence waits for a later slice.
+over numpy, as in :mod:`repro.core.perfdb`, with a brute-force oracle),
+saved as a JSON + ``.npz`` pair in the JAX package's format.
 """
 
 from __future__ import annotations
 
 import heapq
+import json
 import warnings
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 
@@ -48,6 +50,12 @@ class PerfRecord:
         (the baseline is the micro-benchmark at full fast memory)."""
         x = self.baseline_time
         return (self.times - x) / x
+
+    def min_fm_within(self, target_loss: float) -> float | None:
+        """Smallest fm fraction whose predicted loss <= target, else None."""
+        loss = self.predicted_loss()
+        ok = self.fm_fracs[loss <= target_loss + 1e-12]
+        return float(ok.min()) if ok.size else None
 
 
 # --------------------------------------------------------------------- HNSW
@@ -225,3 +233,35 @@ class PerfDB:
         d = raw - self._embed(cv)
         order = np.argsort(np.einsum("ij,ij->i", d, d))[:k]
         return [self.records[int(i)] for i in order]
+
+    # ------------------------------------------------------------ persistence
+    def save(self, path: str | Path) -> None:
+        """Write ``path.json`` (the configs) and ``path.npz`` (the curves)."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        meta = []
+        arrays = {}
+        for i, r in enumerate(self.records):
+            meta.append(r.config.to_dict())
+            arrays[f"fm_{i}"] = r.fm_fracs
+            arrays[f"t_{i}"] = r.times
+        np.savez_compressed(path.with_suffix(".npz"), **arrays)
+        path.with_suffix(".json").write_text(json.dumps(meta))
+
+    @classmethod
+    def load(cls, path: str | Path) -> "PerfDB":
+        """A database saved by :meth:`save` (of either package), built."""
+        path = Path(path)
+        meta = json.loads(path.with_suffix(".json").read_text())
+        arrays = np.load(path.with_suffix(".npz"))
+        db = cls()
+        for i, cfg in enumerate(meta):
+            db.add(
+                PerfRecord(
+                    config=ConfigVector(**cfg),
+                    fm_fracs=arrays[f"fm_{i}"],
+                    times=arrays[f"t_{i}"],
+                )
+            )
+        db.build()
+        return db

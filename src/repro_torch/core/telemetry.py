@@ -14,7 +14,7 @@ Counterpart of :mod:`repro.core.telemetry`, same arithmetic.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 
@@ -53,8 +53,8 @@ class ConfigVector:
     intensity: float = 1.0
     warm_pages: float = 0.0  # fast-tier pages seen below hot_thr
     warm_touches: float = 0.0  # their total sampled touches
-    # promotion candidates the policy itself declined (admission control)
-    # — carried as an extra, not an index dim
+    # promotion candidates the policy itself declined (admission control /
+    # thrash-guard suppression) — carried as an extra, not an index dim
     pm_admit_fail: float = 0.0
 
     def as_array(self) -> np.ndarray:
@@ -69,6 +69,9 @@ class ConfigVector:
         for i in (0, 1, 2, 3, 5):  # pacc_f, pacc_s, pm_de, pm_pr, rss
             out[i] = np.log1p(v[i])
         return out
+
+    def to_dict(self) -> dict:
+        return asdict(self)
 
     @classmethod
     def from_array(cls, v, intensity: float = 1.0) -> "ConfigVector":

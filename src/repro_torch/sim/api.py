@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`repro.sim.api` for the batched sweep backends:
 
-* :class:`Scenario`: what to run (a trace, or a zero-argument callable
-  returning one; the hardware profile and fast-tier capacity; pool
+* :class:`Scenario`: what to run (a trace, a workload name of
+  :data:`repro_torch.sim.workloads.WORKLOADS`, or a zero-argument callable
+  returning a trace; the hardware profile and fast-tier capacity; pool
   overrides; ``fast_only_at_full`` for the micro-benchmark's NP_slow = 0
   baseline at full size);
 * :class:`PolicySpec`: how pages are managed (a ``kind`` from
@@ -120,9 +121,10 @@ class PolicySpec:
     """One page-management variant of an experiment.
 
     ``kind`` names a class of :data:`repro_torch.tiering.policy.POLICIES`
-    (``"tpp"``, ``"admission"``); ``params`` is passed to its constructor.
-    ``tuner`` puts a Tuna tuner in the loop. ``fm_frac`` overrides the
-    experiment's size vector for this spec. Labels are the JAX package's.
+    (``"tpp"``, ``"admission"``, ``"thrash_guard"``); ``params`` is passed
+    to its constructor. ``tuner`` puts a Tuna tuner in the loop.
+    ``fm_frac`` overrides the experiment's size vector for this spec.
+    Labels are the JAX package's.
     """
 
     kind: str = "tpp"
@@ -173,8 +175,10 @@ class PolicySpec:
 
 @dataclass
 class Scenario:
-    """What to run: a trace (or a zero-argument callable returning one),
-    hardware, capacity and pool overrides.
+    """What to run: a trace, a workload name of
+    :data:`repro_torch.sim.workloads.WORKLOADS` (generated at its defaults),
+    or a zero-argument callable returning a trace; hardware, capacity and
+    pool overrides.
 
     ``fast_only_at_full`` runs full-size slices (``fm_frac >= 1``) on
     ``trace.fast_only()``, the micro-benchmark's NP_slow = 0 baseline the
@@ -183,7 +187,7 @@ class Scenario:
     wait for a later slice.
     """
 
-    trace: Trace | Callable[[], Trace] | None = None
+    trace: Trace | str | Callable[[], Trace] | None = None
     name: str | None = None
     hw: HardwareProfile = OPTANE_LIKE
     hw_capacity_pages: int | None = None
@@ -200,6 +204,8 @@ class Scenario:
             return self.name
         if isinstance(self.trace, Trace):
             return self.trace.name
+        if isinstance(self.trace, str):
+            return self.trace
         if self.trace is not None:
             f = getattr(self.trace, "func", self.trace)
             return getattr(f, "__name__", "scenario")
@@ -279,16 +285,15 @@ class RunSet:
 
 
 def _resolve_trace(scenario: Scenario) -> Trace:
+    """The scenario's trace; an unknown workload name raises ``KeyError``."""
     tr = scenario.trace
     if isinstance(tr, Trace):
         return tr
-    if callable(tr):
-        return tr()
-    raise NotImplementedError(
-        f"scenario {scenario.resolved_name!r}: the port takes a Trace or a "
-        "zero-argument callable returning one; workload names wait for "
-        "a later slice"
-    )
+    if isinstance(tr, str):
+        from repro_torch.sim.workloads import WORKLOADS
+
+        return WORKLOADS[tr]()
+    return tr()
 
 
 def _spec_fracs(spec: PolicySpec, fm_fracs: tuple) -> tuple:

@@ -35,6 +35,12 @@ class SimResult:
     stats: dict  # final pool counters
     costs: list = field(default_factory=list)  # IntervalCosts per interval
 
+    @property
+    def migrations(self) -> int:
+        return self.stats["pgpromote_success"] + (
+            self.stats["pgdemote_kswapd"] + self.stats["pgdemote_direct"]
+        )
+
 
 @dataclass
 class SweepResult:

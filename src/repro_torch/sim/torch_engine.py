@@ -4,7 +4,9 @@ Counterpart of :mod:`repro.sim.jax_engine`. It executes the same
 per-interval sequence as the numpy sweep of the JAX package
 (:func:`repro.sim.sweep._sweep_run`, the equivalence oracle): first-touch
 allocation, batched tier classification, heat decay, hot-set ranking, the
-TPP promote/reclaim schedule of every size, per-size victim selection over
+policy's candidate filter (admission, or the thrash guard's ping-pong
+backoff with its per-size state on the device), the TPP promote/reclaim
+schedule of every size, per-size victim selection over
 the shared demotion ranking (the ``victim_partition`` CUDA kernel), and
 the promote/demote commit. The tier state of all sizes is one stacked
 ``[n_sizes, rss]`` int8 tensor on the device; the host keeps only what the
@@ -126,6 +128,7 @@ def _sweep_run_torch(
     cap = int(hw_capacity_pages or trace.rss_pages)
     hot_thr = policy.hot_thr
     admit_margin = getattr(policy, "admit_margin", None)
+    reuse_window = getattr(policy, "reuse_window", None)
     promote_batch = policy.promote_batch
 
     # host slice pools: the control plane the profilers and tuners read;
@@ -152,6 +155,14 @@ def _sweep_run_torch(
     heat = torch.zeros(num_pages, dtype=torch.float64, device=dev)
     allocated = tier_b[0] != _UNALLOC  # first touch is size-independent
     slow8 = torch.tensor(_SLOW, dtype=torch.int8, device=dev)
+    if reuse_window is not None:
+        # ThrashGuardPolicy's per-size state: the step of each page's last
+        # promotion, and the remaining backoff steps. One step per interval,
+        # so the step counter is the interval index.
+        last_promoted = torch.full(
+            (n_sizes, num_pages), -(2**62), dtype=torch.int64, device=dev
+        )
+        cooldown = torch.zeros(n_sizes, dtype=torch.int64, device=dev)
 
     n_intervals = len(trace)
     times = np.zeros((n_sizes, n_intervals), dtype=np.float64)
@@ -217,11 +228,24 @@ def _sweep_run_torch(
         ]
         eff_h = eff_all[hot_ids]
         slow_cand = tier[:, hot_ids] == _SLOW
-        if admit_margin is None:
-            admitted = slow_cand
-        else:
+        if admit_margin is not None:
             # AdmissionTPPPolicy: trace-pure, size-independent
             admitted = slow_cand & (eff_h >= admit_margin * hot_thr)[None, :]
+        elif reuse_window is not None:
+            # ThrashGuardPolicy: a candidate promoted within the last
+            # reuse_window steps is slow again, so it ping-ponged. Past
+            # churn_frac of the candidates the size backs off, and while
+            # it backs off its ping-pong candidates are suppressed.
+            recent = slow_cand & (last_promoted[:, hot_ids] >= i - reuse_window)
+            n_ping = recent.sum(dim=1)
+            churn = n_ping.to(torch.float64) > policy.churn_frac * slow_cand.sum(
+                dim=1
+            ).to(torch.float64)
+            cooldown = torch.where(churn, policy.backoff_intervals, cooldown)
+            suppress = (cooldown > 0) & (n_ping > 0)
+            admitted = slow_cand & ~(recent & suppress[:, None])
+        else:
+            admitted = slow_cand
         rejected_d = slow_cand.sum(dim=1) - admitted.sum(dim=1)
         if promote_batch is not None:
             admitted = admitted & (torch.cumsum(admitted, dim=1) <= promote_batch)
@@ -261,6 +285,11 @@ def _sweep_run_torch(
             tier[:, order] = torch.where(vic, slow8, ranked)
         win_rows, win_cols = torch.nonzero(win_mask, as_tuple=True)
         tier[win_rows, hot_ids[win_cols]] = _FAST
+        if reuse_window is not None:
+            # the guard's post-step hook: stamp this step's promotions
+            # (same-step demotions of winners included), count down
+            last_promoted[win_rows, hot_ids[win_cols]] = i
+            cooldown = torch.clamp(cooldown - 1, min=0)
         # --- thrash regime: resolve interfering sizes' victim identities on
         # the host (before the counter commit: the resolver replays the
         # pre-step schedule) and patch their tier rows

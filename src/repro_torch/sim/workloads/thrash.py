@@ -4,13 +4,19 @@
 The regime where tiering systems live or die (and where the Tuna knee
 sits): the instantaneous hot set does not fit in fast memory, so every
 profiling interval promotes far more pages than the reclaim headroom and
-kswapd demotes pages that were promoted moments earlier.
+kswapd demotes pages that were promoted moments earlier — migration
+failures and direct reclaim dominate the cost (paper Eq. 2-4, Figs. 3-8).
 
-Implemented as a cache-churning table scan: a contiguous (wrapping) window
-over one large table is gathered repeatedly (every window page crosses the
-promotion threshold each interval) while the window origin advances by a
-fraction of its length per interval. A sparse background sprinkle keeps the
-demotion ranking's cold tail populated.
+Implemented as a cache-churning table scan, the classic LRU-adversarial
+pattern: a contiguous (wrapping) window over one large table is gathered
+repeatedly — every window page crosses the promotion threshold each
+interval — while the window origin advances by a fraction of its length
+per interval, so yesterday's hot pages go cold exactly as the freshly
+promoted ones push them out. A sparse background sprinkle keeps the
+demotion ranking's cold tail populated. With the default geometry the
+window is ~2x a mid-curve (``fm_frac`` ~0.35) fast tier, which drives the
+per-step reclaim demand deep into same-interval promotions at every
+swept size below ~0.7.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ def thrash_trace(
     reps: int = 6,
     seed: int = 23,
     page_bytes: int = 4096,
+    write_frac: float = 0.0,
 ) -> Trace:
     """Rotating-window churn over a table of ``rss_pages`` pages.
 
@@ -38,7 +45,10 @@ def thrash_trace(
     fraction of the RSS; ``rotate_frac`` advances its origin per interval
     as a fraction of the window; ``reps`` random gathers per window page
     per interval put every window page past the default promotion
-    threshold (``hot_thr=4``).
+    threshold (``hot_thr=4``) with high probability. ``write_frac`` marks
+    that fraction of the hash-probe gathers as stores (read-modify-write
+    probes); the default 0.0 keeps the trace bit-identical to before the
+    write channel existed.
     """
     rng = np.random.default_rng(seed)
     pm = PageMapper("thrash", page_bytes=page_bytes, num_threads=8)
@@ -60,7 +70,7 @@ def thrash_trace(
         idx = np.repeat(win, reps) * elems_per_page + rng.integers(
             0, elems_per_page, size=hot_pages * reps
         )
-        pm.touch("table", idx, ops_per_access=4.0)
+        pm.touch("table", idx, ops_per_access=4.0, write_frac=write_frac)
         # sparse cold-tail sprinkle: single touches stay far below the
         # promotion threshold but keep the whole RSS in the ranking
         bg = rng.choice(rss_pages, size=bg_n, replace=False).astype(np.int64)

@@ -4,10 +4,12 @@ resolves kinds through (counterpart of :mod:`repro.tiering.policy`).
 
 The decision semantics live in the device step
 (:mod:`repro_torch.sim.torch_engine`), which replicates the TPP candidate
-contract (hot-threshold promotion, watermark reclaim) and the trace-pure
-admission criterion of :class:`AdmissionTPPPolicy` for every swept size at
+contract (hot-threshold promotion, watermark reclaim), the trace-pure
+admission criterion of :class:`AdmissionTPPPolicy` and the per-size
+ping-pong backoff of :class:`ThrashGuardPolicy` for every swept size at
 once. The policy objects here carry only their parameters and flags. The
-stateful thrash guard and first-touch kinds wait for a later slice.
+non-migrating first-touch kind waits for a later slice, with the per-size
+engine it runs on.
 """
 
 from __future__ import annotations
@@ -73,12 +75,47 @@ class AdmissionTPPPolicy(TPPPolicy):
             raise ValueError("admit_margin must be a finite non-negative float")
 
 
+class ThrashGuardPolicy(TPPPolicy):
+    """TPP with a Jenga-style thrash guard.
+
+    A promotion candidate that this policy promoted within the last
+    ``reuse_window`` steps is slow again, so it was demoted in between: it
+    ping-ponged. When ping-pong candidates exceed ``churn_frac`` of the
+    interval's candidates, the policy enters a ``backoff_intervals``-step
+    backoff during which ping-pong candidates are suppressed (reported as
+    :attr:`PolicyOutcome.pm_admit_fail`). Outside backoff it is plain TPP.
+    The state (a last-promotion stamp per page, the step and backoff
+    counters) is per swept size and lives on the device in the sweep step.
+    """
+
+    kind = "thrash_guard"
+
+    def __init__(
+        self,
+        hot_thr: int = 4,
+        promote_batch: int | None = None,
+        reuse_window: int = 2,
+        churn_frac: float = 0.25,
+        backoff_intervals: int = 2,
+    ) -> None:
+        super().__init__(hot_thr=hot_thr, promote_batch=promote_batch)
+        self.reuse_window = int(reuse_window)
+        self.churn_frac = float(churn_frac)
+        self.backoff_intervals = int(backoff_intervals)
+        if self.reuse_window < 1:
+            raise ValueError("reuse_window must be >= 1 (steps)")
+        if not 0.0 <= self.churn_frac <= 1.0:
+            raise ValueError("churn_frac must be within [0, 1]")
+        if self.backoff_intervals < 1:
+            raise ValueError("backoff_intervals must be >= 1")
+
+
 # kind -> policy class
 POLICIES: dict[str, type] = {
-    cls.kind: cls for cls in (TPPPolicy, AdmissionTPPPolicy)
+    cls.kind: cls for cls in (TPPPolicy, AdmissionTPPPolicy, ThrashGuardPolicy)
 }
-# kinds of the JAX package that later slices of the port bring over
-LATER_KINDS = ("thrash_guard", "first_touch")
+# kinds of the JAX package that a later slice of the port brings over
+LATER_KINDS = ("first_touch",)
 
 
 def resolve_policy(kind: str) -> type:
@@ -89,7 +126,7 @@ def resolve_policy(kind: str) -> type:
     if kind in LATER_KINDS:
         raise NotImplementedError(
             f"policy kind {kind!r} is not ported yet; a later slice of the "
-            "port brings the stateful and non-batchable policies"
+            "port brings the non-batchable policies"
         )
     raise ValueError(
         f"unknown policy kind {kind!r}; registered kinds: "

@@ -263,6 +263,6 @@ def test_later_slice_scenarios_raise(scenario_kw):
 
 def test_later_slice_policy_kinds_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
-        api.PolicySpec(kind="thrash_guard")
+        api.PolicySpec(kind="first_touch")
     with pytest.raises(ValueError, match="unknown policy kind"):
         api.PolicySpec(kind="nope")
