@@ -86,7 +86,27 @@ Phases, each of which must pass (any failure exits non-zero):
     ``victim_partition`` call held against the plain version. Per workload
     it prints pages, intervals, wall s, saving, loss, migrations and the
     trace's sha256; for pagerank and the large btree the profiler's wall
-    against device ms an interval.
+    against device ms an interval;
+11. the fault model and the multi-tenant fleet on the card (after the JAX
+    package's ``benchmarks/fig_fault_resilience.py`` and
+    ``benchmarks/fig_fleet.py``, through ``repro_torch.sim.api.run``,
+    ``repro_torch.fleet`` and ``repro_torch.serving.MultiTenantKV``), with
+    the ``victim_partition`` and ``migrate_pages`` counts set to 0 just
+    before each part and read just after: (a) phase 10's thrash trace under
+    the levels none, mild and harsh (seed 7), kinds tpp, admission and
+    thrash_guard at full size and tuned (tau 5%), on the card and on the
+    CPU, bit for bit (fault events included); then phase 4's trace under
+    harsh faults over the paper's 20 sizes with TPP+Tuna riding along; (b)
+    the balanced, skewed and noisy mixes (48 intervals, tenants of 12,000
+    pages, the noisy neighbour 8,000, budget 0.7 of the RSS, tau 0.2), the
+    full-budget reference, static and fleet_tuna, on the card and on the
+    CPU, bit for bit (the arbiter's log included), the noisy mix once more
+    under harsh faults; then the skewed mix at phase 4's RSS (3,250,584
+    pages) on the card; (c) ``MultiTenantKV`` (three tenants of 1,024, 512
+    and 512 Qwen3-1.7B KV pages, 3.76 GB pinned, an HBM budget of 512
+    slots) through 200 seeded rounds with a rebalance every 8, on the CPU
+    and on the card at a narrow page, bit for bit, then at the full page
+    with every page's content checked.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -359,6 +379,8 @@ def runs_plain(rs) -> list:
             "watermark_log": None if r.watermark_log is None else [
                 e.__dict__ for e in r.watermark_log
             ],
+            "fault_events": r.fault_events,
+            "arbiter_log": r.arbiter_log,
         })
     return out
 
@@ -445,6 +467,7 @@ def main_path(dev, capture: dict) -> dict:
     t = time.perf_counter()
     trace = thrash_trace(rss_pages=FULL_RSS, n_intervals=FULL_INTERVALS)
     phases["trace_s"] = time.perf_counter() - t
+    capture["trace"] = trace  # phase 11's real-size fault pass reuses it
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -2131,7 +2154,676 @@ def paper_experiment(dev) -> dict:
         "victim_partition_launches": launches,
         "max_abs_err": big_err,
         "seconds": seconds,
+        # for phase 11, which reuses the database and the thrash trace
+        "db": db,
+        "thrash_trace": traces["thrash"],
     }
+
+
+# ------------------------------------------------------------ phase 11
+# The fault model and the multi-tenant fleet on the card, after the JAX
+# package's benchmarks/fig_fault_resilience.py and benchmarks/fig_fleet.py
+# (their metric code copied here: this script imports neither package's
+# benchmarks), through repro_torch.sim.api.run, repro_torch.fleet and
+# repro_torch.serving.MultiTenantKV.
+FAULT_SEED = 7
+# fig_fleet.py: the global budget as a fraction of the tenants' RSS, the
+# intervals dropped from the loss percentiles, the arbiter, the fleet's tau
+FLEET_BUDGET_FRAC = 0.7
+FLEET_WARMUP = 2
+TAU_FLEET = 0.2
+# the fleet mixes' sizes: fig_fleet.py's defaults, and the skewed mix at
+# phase 4's RSS (3,250,584 pages of 4 KiB, 13.3 GB: tenants of 1,625,292 +
+# 812,646 + 812,646 pages, pages_per_session scaled by the same factor)
+FLEET_SIZE = dict(ni=48, rss=12_000, pps=600, noisy_rss=8_000)
+FLEET_FULL_SIZE = dict(ni=48, rss=812_646, pps=40_632, noisy_rss=8_000)
+# MultiTenantKV at Qwen3-1.7B's KV page: 2,048 pinned host pages (3.76 GB),
+# an HBM budget of 512 slots, each tenant's ceiling half its pages
+FLEET_KV_TENANTS = {"a": 1024, "b": 512, "c": 512}
+FLEET_KV_BUDGET, FLEET_KV_CEIL = 512, 0.5
+FLEET_KV_ROUNDS, FLEET_KV_REBALANCE = 200, 8
+
+
+def fault_levels() -> dict:
+    """fig_fault_resilience.py's levels; ``None`` is the fault-free control."""
+    from repro_torch.sim.faults import FaultSpec
+
+    return {
+        "none": None,
+        "mild": FaultSpec(seed=FAULT_SEED, promote_fail_rate=0.05,
+                          max_retries=3, telemetry_drop_rate=0.10),
+        "harsh": FaultSpec(
+            seed=FAULT_SEED, promote_fail_rate=0.20, max_retries=2,
+            backoff_base=1, demote_fail_rate=0.10, kswapd_stall_rate=0.05,
+            kswapd_stall_len=2, telemetry_drop_rate=0.15,
+            telemetry_noise_rate=0.20, telemetry_noise_scale=0.5,
+            db_outage_rate=0.15, db_outage_len=2, actuation_lag=1,
+        ),
+    }
+
+
+def degraded_counts(decisions) -> dict:
+    out: dict = {}
+    for d in decisions or ():
+        if d.degraded is not None:
+            out[d.degraded] = out.get(d.degraded, 0) + 1
+    return out
+
+
+def fault_level_run(trace, level: str, spec, db, kinds=KNEE_KINDS,
+                    tuned_start: float = 1.0, device=None):
+    """fig_fault_resilience.py's experiment at one level: each kind at full
+    size and tuned (tau 5%) from ``tuned_start``, one scenario."""
+    from repro_torch.sim import api
+
+    policies = []
+    for kind in kinds:
+        policies.append(api.PolicySpec(kind=kind, label=f"{kind}_full", fm_frac=1.0))
+        policies.append(api.PolicySpec(kind=kind, label=f"{kind}_tuna",
+                                       fm_frac=tuned_start, tuner=paper_tuner()))
+    return api.run(api.Experiment(
+        name=f"fault_resilience[{trace.name}@{level}]",
+        scenarios=[api.Scenario(trace=trace, name=f"{trace.name}@{level}",
+                                faults=spec)],
+        fm_fracs=(1.0,), policies=policies,
+    ), db=db, device=device)
+
+
+def fault_rows(rs, trace, kinds=KNEE_KINDS) -> dict:
+    """fig_fault_resilience.py's row per kind of one level's RunSet."""
+    rows = {}
+    for kind in kinds:
+        base = rs.result(policy=f"{kind}_full")
+        res = rs.result(policy=f"{kind}_tuna")
+        rec = rs.record(policy=f"{kind}_tuna")
+        loss = summarize(base, res, trace.rss_pages)["overall_loss"]
+        rows[kind] = {
+            "overall_loss": loss,
+            "target_miss": loss - PAPER_TAU,
+            "migrations": res.migrations,
+            "pgpromote_fail": res.stats["pgpromote_fail"],
+            "degraded": degraded_counts(rec.decisions),
+            "fault_events": len(rec.fault_events or ()),
+        }
+    return rows
+
+
+def fleet_arbiter():
+    from repro_torch.fleet import ArbiterSpec
+
+    return ArbiterSpec(every=2, hysteresis_frac=0.02)
+
+
+def fleet_tuner_spec():
+    from repro_torch.sim import api
+
+    return api.TunerSpec(target_loss=TAU_FLEET, tune_every=2, k_neighbors=1,
+                         cooldown_windows=3, max_step_frac=0.08)
+
+
+def arrivals_kw(seed: int, ni: int, rss: int, pps: int, base_rate: float = 0.4):
+    """fig_fleet.py's arrivals tenant: light load against the RSS, one
+    diurnal cycle and one flash crowd a run."""
+    return dict(n_intervals=ni, rss_pages=rss, pages_per_session=pps,
+                base_rate=base_rate, session_mean=3.0, shared_frac=0.15,
+                diurnal_period=ni, diurnal_amp=0.6, flash_crowds=1,
+                flash_mult=4.0, seed=seed)
+
+
+def fleet_mix_jobs(ni: int, rss: int, pps: int, noisy_rss: int) -> dict:
+    """fig_fleet.py's mixes: mix -> [(tenant, workload, kwargs, ceil_frac)]."""
+    return {
+        "balanced": [
+            ("t0", "arrivals", arrivals_kw(11, ni, rss, pps, 0.25), 1.0),
+            ("t1", "arrivals", arrivals_kw(23, ni, rss, pps, 0.4), 1.0),
+            ("t2", "arrivals", arrivals_kw(37, ni, rss, pps, 0.55), 1.0),
+        ],
+        "skewed": [
+            ("big", "arrivals", arrivals_kw(41, ni, 2 * rss, pps, 0.8), 1.0),
+            ("small0", "arrivals", arrivals_kw(43, ni, rss, pps), 1.0),
+            ("small1", "arrivals", arrivals_kw(47, ni, rss, pps), 1.0),
+        ],
+        "noisy": [
+            ("victim0", "arrivals", arrivals_kw(53, ni, rss, pps), 1.0),
+            ("victim1", "arrivals", arrivals_kw(59, ni, rss, pps), 1.0),
+            ("noisy", "thrash", dict(n_intervals=ni, rss_pages=noisy_rss), 0.4),
+        ],
+    }
+
+
+def fleet_tenants(rows, traces=None) -> tuple:
+    """TenantSpecs of one mix's job rows; ``traces`` (tenant -> trace)
+    holds traces made elsewhere, else each is generated here."""
+    from repro_torch.fleet import TenantSpec
+    from repro_torch.sim.workloads import WORKLOADS
+
+    return tuple(
+        TenantSpec(trace=traces[name] if traces else WORKLOADS[w](**kw),
+                   name=name, ceil_frac=ceil)
+        for name, w, kw, ceil in rows
+    )
+
+
+def fleet_run(mix: str, tenants, db, policies, budget_frac=FLEET_BUDGET_FRAC,
+              faults=None, device=None, name=None):
+    from repro_torch.fleet import FleetScenario
+    from repro_torch.sim import api
+
+    return api.run(api.Experiment(
+        name=name or f"fleet[{mix}]",
+        scenarios=[FleetScenario(tenants=tenants, name=mix,
+                                 budget_frac=budget_frac,
+                                 arbiter=fleet_arbiter(), faults=faults)],
+        fm_fracs=(1.0,), policies=policies,
+    ), db=db, device=device)
+
+
+def fleet_policies() -> list:
+    from repro_torch.sim import api
+
+    return [api.PolicySpec(label="static"),
+            api.PolicySpec(label="fleet_tuna", tuner=fleet_tuner_spec())]
+
+
+def run_mix(mix: str, tenants, db, device=None, faults=None):
+    """fig_fleet.py's run_mix: the full-budget reference (shares by RSS,
+    ceilings open, budget 1.0) and static + fleet_tuna. ``(ref_rs, rs)``."""
+    import dataclasses
+
+    from repro_torch.sim import api
+
+    ref_tenants = tuple(
+        dataclasses.replace(t, share=float(t.trace.rss_pages), ceil_frac=1.0)
+        for t in tenants
+    )
+    ref_rs = fleet_run(f"{mix}_ref", ref_tenants, db,
+                       [api.PolicySpec(label="static")], budget_frac=1.0,
+                       device=device, name=f"fleet_ref[{mix}]")
+    rs = fleet_run(mix, tenants, db, fleet_policies(), faults=faults,
+                   device=device)
+    return ref_rs, rs
+
+
+def tenant_loss_percentiles(rec, ref_rec, warmup: int = FLEET_WARMUP) -> dict:
+    """p50/p95/p99 of per-interval loss against the reference over the
+    intervals where the reference spent at least 10% of its mean."""
+    import numpy as np
+
+    t = np.asarray(rec.result.interval_times[warmup:], dtype=np.float64)
+    b = np.asarray(ref_rec.result.interval_times[warmup:], dtype=np.float64)
+    m = b >= 0.1 * float(b.mean())
+    losses = (t[m] - b[m]) / b[m]
+    return {p: float(np.percentile(losses, p)) for p in (50, 95, 99)}
+
+
+def fm_in_use(recs):
+    import numpy as np
+
+    return np.sum([r.result.fm_sizes for r in recs], axis=0)
+
+
+def reclaimable(alloc, desired, budget: int) -> float:
+    """Stranded-but-wanted pages under one allocation: ``min(stranded,
+    starved)``, unassigned budget counted as stranded."""
+    import numpy as np
+
+    alloc = np.asarray(alloc, dtype=np.int64)
+    desired = np.asarray(desired, dtype=np.int64)
+    stranded = int(np.maximum(alloc - desired, 0).sum())
+    stranded += max(0, budget - int(alloc.sum()))
+    starved = int(np.maximum(desired - alloc, 0).sum())
+    return float(min(stranded, starved))
+
+
+def fleet_budget(tenants):
+    """The mix's budget (pages) and static share split."""
+    import numpy as np
+
+    from repro_torch.fleet.runner import static_partition, tenant_bounds
+
+    caps = np.array([int(t.trace.rss_pages) for t in tenants])
+    budget = int(round(FLEET_BUDGET_FRAC * caps.sum()))
+    floors, ceils = tenant_bounds(tenants, caps)
+    return budget, static_partition(budget, caps, [t.share for t in tenants],
+                                    floors, ceils)
+
+
+def stranded_summary(rs, mix: str, tenants) -> dict:
+    """Mean reclaimable stranded memory at the arbiter's steps after the
+    warm-up, static split against the tuned grants, and the pages
+    arbitration recovers."""
+    import numpy as np
+
+    budget, static_alloc = fleet_budget(tenants)
+    rec = rs.record(scenario=f"{mix}/{tenants[0].resolved_name}",
+                    policy="fleet_tuna")
+    static_vals, tuned_vals = [], []
+    for e in rec.arbiter_log or ():
+        if int(e["interval"]) < FLEET_WARMUP:
+            continue
+        static_vals.append(reclaimable(static_alloc, e["desired"], budget))
+        tuned_vals.append(reclaimable(e["granted"], e["desired"], budget))
+    out = {
+        "budget_pages": budget,
+        "stranded_static": float(np.mean(static_vals)) if static_vals else 0.0,
+        "stranded_tuned": float(np.mean(tuned_vals)) if tuned_vals else 0.0,
+    }
+    out["saved_pages"] = out["stranded_static"] - out["stranded_tuned"]
+    out["saved_frac_of_budget"] = out["saved_pages"] / budget
+    return out
+
+
+def mode_counts(arbiter_log) -> dict:
+    out: dict = {}
+    for e in arbiter_log or ():
+        out[e["mode"]] = out.get(e["mode"], 0) + 1
+    return out
+
+
+def mix_summary(mix: str, tenants, ref_rs, rs) -> dict:
+    """fig_fleet.py's mix_summary: budget, mean fm in use, reclaimable
+    stranded memory, loss percentiles per (tenant, policy), arbiter modes."""
+    import numpy as np
+
+    out = stranded_summary(rs, mix, tenants)
+    out["tenants"] = {}
+    for pol in ("static", "fleet_tuna"):
+        recs = [rs.record(scenario=f"{mix}/{t.resolved_name}", policy=pol)
+                for t in tenants]
+        out["fm_used_static" if pol == "static" else "fm_used_tuned"] = float(
+            np.mean(fm_in_use(recs)))
+        for t, rec in zip(tenants, recs):
+            ref_rec = ref_rs.record(scenario=f"{mix}_ref/{t.resolved_name}",
+                                    policy="static")
+            out["tenants"].setdefault(t.resolved_name, {})[pol] = (
+                tenant_loss_percentiles(rec, ref_rec))
+    tuned = [rs.record(scenario=f"{mix}/{t.resolved_name}", policy="fleet_tuna")
+             for t in tenants]
+    out["fm_peak_tuned"] = float(np.max(fm_in_use(tuned)))
+    out["arbiter_modes"] = mode_counts(tuned[0].arbiter_log)
+    return out
+
+
+def isolation_delta(summary: dict, victims=("victim0", "victim1")) -> float:
+    """The noisy mix's worst victim p99-loss delta, tuned - static."""
+    return max(summary["tenants"][v]["fleet_tuna"][99]
+               - summary["tenants"][v]["static"][99] for v in victims)
+
+
+def fleet_kv_rounds(mt, rounds: int = FLEET_KV_ROUNDS,
+                    every: int = FLEET_KV_REBALANCE, seed: int = 18) -> list:
+    """A seeded schedule on a MultiTenantKV (the port's or the JAX
+    package's): each round every tenant makes a window of its pages
+    resident and touches it (the hot tenant a quarter of its pages, the
+    others a 32nd), the hot tenant moving on every ``rounds // (2 *
+    tenants)`` rounds; every ``every`` rounds a rebalance. Returns what each
+    call returned and, after each rebalance, the grants and each tenant's
+    HBM pages in use and effective fast-memory size."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = list(mt.names)
+    phase = max(1, rounds // (2 * len(names)))
+    log = []
+    for r in range(rounds):
+        hot = names[(r // phase) % len(names)]
+        for name in names:
+            kv = mt[name]
+            n = kv.total_pages // (4 if name == hot else 32)
+            pages = (int(rng.integers(0, kv.total_pages)) + np.arange(n)) % kv.total_pages
+            log.append(("resident", name, kv.ensure_resident(pages)))
+            kv.touch(pages)
+        for name in names:
+            mt[name].end_interval()
+        if (r + 1) % every == 0:
+            granted = mt.rebalance(t=float(r), interval=r)
+            log.append(("rebalance", [int(g) for g in granted],
+                        [int(mt[n].pool.fast_pages().size) for n in names],
+                        [int(mt[n].pool.effective_fm_size) for n in names]))
+    return log
+
+
+def fleet_kv_state(mt) -> dict:
+    """A MultiTenantKV's state as plain data (the port's)."""
+    import numpy as np
+    import torch
+
+    out = {"events": mt.arbiter.log_dicts()}
+    for name in mt.names:
+        kv = mt[name]
+        every = np.arange(kv.total_pages)
+        out[name] = {
+            "hbm_slot": kv.hbm_slot.tolist(),
+            "tier": np.asarray(kv.pool.tier).tolist(),
+            "heat": kv.pool.heat_of(every).tolist(),
+            "stats": kv.pool.stats.snapshot(),
+            "effective_fm": kv.pool.effective_fm_size,
+            "host": kv.host.view(torch.int16).cpu().numpy().tobytes(),
+            "hbm": kv.hbm.view(torch.int16).cpu().numpy().tobytes(),
+        }
+    return out
+
+
+def build_fleet_kv(page: dict, device, fill=None):
+    from repro_torch.serving import KVPageConfig, MultiTenantKV
+
+    mt = MultiTenantKV(KVPageConfig(**page), tenant_pages=FLEET_KV_TENANTS,
+                       hbm_budget=FLEET_KV_BUDGET, ceil_frac=FLEET_KV_CEIL,
+                       seed=5, device=device)
+    if fill is not None:
+        for name in mt.names:
+            fill(mt[name])
+    return mt
+
+
+def fleet_kv_phase(dev) -> dict:
+    """MultiTenantKV: the control plane's CPU lane == its CUDA lane at a
+    narrow page, then the schedule at Qwen3-1.7B's KV page on the card with
+    ``migrate_pages`` counted and every page's content checked."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.page_migrate import migrate_pages
+
+    elems = (2 * NARROW_PAGE["n_groups"] * NARROW_PAGE["page_size"]
+             * NARROW_PAGE["kv_heads"] * NARROW_PAGE["head_dim"])
+    lanes = {}
+    for device in ("cpu", "cuda"):
+        rng = np.random.default_rng(17)
+
+        def fill(kv):
+            kv.host.copy_(torch.from_numpy(rng.standard_normal(
+                (kv.total_pages, elems), dtype=np.float32)).to(torch.bfloat16))
+
+        mt = build_fleet_kv(NARROW_PAGE, device, fill)
+        log = fleet_kv_rounds(mt)
+        torch.cuda.synchronize()
+        lanes[device] = (log, fleet_kv_state(mt))
+    check(lanes["cpu"][0] == lanes["cuda"][0],
+          "MultiTenantKV: the CPU and CUDA lanes' call results differ")
+    for key in lanes["cpu"][1]:
+        check(lanes["cpu"][1][key] == lanes["cuda"][1][key],
+              f"MultiTenantKV: the CPU and CUDA lanes differ in {key}")
+
+    chunk = 64
+    gen = torch.Generator(device=dev).manual_seed(19)
+    weights = None
+    before = {}
+
+    def fill_full(kv):
+        nonlocal weights
+        elems = kv.cfg.elems_per_page
+        if weights is None:
+            weights = torch.randint(1, 2**15, (elems,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+        fps = []
+        for a in range(0, kv.total_pages, chunk):
+            pages = torch.randn((min(chunk, kv.total_pages - a), elems),
+                                generator=gen, device=dev, dtype=torch.bfloat16)
+            fps.append(fingerprints(pages, weights))
+            kv.host[a:a + pages.shape[0]].copy_(pages)
+        before[id(kv)] = torch.cat(fps)
+
+    t = time.perf_counter()
+    mt = build_fleet_kv(QWEN3_1_7B_PAGE, None, fill_full)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    check(all(mt[n].host.is_pinned() and mt[n].hbm.is_cuda for n in mt.names),
+          "MultiTenantKV pools are not on the tiers")
+    migrate_pages.launches = 0
+    t = time.perf_counter()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+    ) as prof:
+        log = fleet_kv_rounds(mt)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = migrate_pages.launches
+    check(launches > 0, "MultiTenantKV never launched migrate_pages")
+    device_us = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    # after each rebalance every tenant holds at most its effective size,
+    # and that size is its grant to within its controller's deadband (the
+    # arbiter's apply stops there, as in the JAX package), so the HBM in
+    # use exceeds the budget by less than the deadbands' sum
+    rebalances = [e for e in log if e[0] == "rebalance"]
+    check(all(u <= e for _, _, use, eff in rebalances for u, e in zip(use, eff)),
+          "MultiTenantKV: a tenant holds more HBM than its watermark allows")
+    deadbands = sum(c.deadband_frac * c.pool.hw_capacity
+                    for c in mt.arbiter.controllers)
+    over = max(sum(use) - mt.hbm_budget for _, _, use, _ in rebalances)
+    check(over < deadbands, f"MultiTenantKV: HBM in use {over} pages above the "
+          f"budget after a rebalance, past the deadbands' {deadbands}")
+    for name in mt.names:
+        kv = mt[name]
+        for a in range(0, kv.total_pages, chunk):
+            got = fingerprints(kv.host[a:a + chunk].to(dev), weights)
+            check(torch.equal(got, before[id(kv)][a:a + chunk]),
+                  f"MultiTenantKV {name}: host pages {a}..{a + chunk} changed")
+        resident = np.flatnonzero(kv.hbm_slot >= 0)
+        for a in range(0, resident.size, chunk):
+            pages = resident[a:a + chunk]
+            slots = torch.as_tensor(kv.hbm_slot[pages], device=dev)
+            got = fingerprints(kv.hbm[slots], weights)
+            check(torch.equal(got, before[id(kv)][torch.as_tensor(pages, device=dev)]),
+                  f"MultiTenantKV {name}: HBM slots do not hold their pages")
+    stats = {n: mt[n].pool.stats.snapshot() for n in mt.names}
+    moved = sum(mt[n].migrated_in + mt[n].migrated_out for n in mt.names)
+    out = {
+        "page_bytes": mt[mt.names[0]].cfg.bytes_per_page,
+        "host_pool_bytes": sum(mt[n].host.numel() * mt[n].host.element_size()
+                               for n in mt.names),
+        "hbm_pool_bytes": sum(mt[n].hbm.numel() * mt[n].hbm.element_size()
+                              for n in mt.names),
+        "setup_s": setup_s,
+        "rounds": FLEET_KV_ROUNDS,
+        "wall_s": wall_s,
+        "wall_ms_per_round": wall_s * 1e3 / FLEET_KV_ROUNDS,
+        "device_ms_per_round": device_us / 1e3 / FLEET_KV_ROUNDS,
+        "device_busy_share": device_us / 1e6 / wall_s,
+        "pages_moved": moved,
+        "gb_moved": moved * mt[mt.names[0]].cfg.bytes_per_page / 1e9,
+        "rebalances": len(rebalances),
+        "modes": mode_counts(mt.arbiter.log_dicts()),
+        "final_grants": rebalances[-1][1],
+        "max_hbm_in_use": max(sum(use) for _, _, use, _ in rebalances),
+        "max_pages_over_budget": over,
+        "rebalances_over_budget": sum(sum(use) > mt.hbm_budget
+                                      for _, _, use, _ in rebalances),
+        "pgpromote_fail": {n: stats[n]["pgpromote_fail"] for n in mt.names},
+        "migrate_pages_launches": launches,
+        "narrow_lanes_calls": len(lanes["cpu"][0]),
+    }
+    del mt
+    return out
+
+
+def real_size_run(fn, n_intervals: int) -> dict:
+    """``fn()`` once under the profiler: wall and device ms an interval,
+    the device's busy share, and ``victim_partition``'s launches."""
+    import torch
+
+    from repro_torch.kernels.victim_partition import victim_partition
+
+    torch.cuda.synchronize()
+    victim_partition.launches = 0
+    t = time.perf_counter()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+    ) as prof:
+        rs = fn()
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    device_us = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    split = {"intervals": n_intervals, "wall_s": wall_s,
+             "wall_ms_per_interval": wall_s * 1e3 / n_intervals,
+             "device_ms_per_interval": device_us / 1e3 / n_intervals,
+             "device_busy_share": device_us / 1e6 / wall_s,
+             "victim_partition_launches": victim_partition.launches}
+    return rs, split
+
+
+def check_runs(rs, dev) -> None:
+    import numpy as np
+
+    check(rs.spec["device"] == str(dev), f"{rs.name} ran on {rs.spec['device']}")
+    check(rs.chunked_step_count == 0, f"{rs.name}: chunked steps ran")
+    for r in rs.runs:
+        times = r.result.interval_times
+        check(bool(np.all(np.isfinite(times))) and bool(np.all(times >= 0)),
+              f"{rs.name}/{r.scenario}/{r.policy}: bad interval times")
+
+
+def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
+    """Phase 11: fault resilience (CPU == CUDA, then phase 4's trace under
+    harsh faults), the three fleet mixes (CPU == CUDA, the noisy mix under
+    harsh faults, then the skewed mix at phase 4's RSS on the card), and
+    MultiTenantKV at Qwen3-1.7B's KV page."""
+    import torch
+
+    from repro_torch.kernels.victim_partition import victim_partition
+    from repro_torch.sim import api
+
+    seconds = {}
+    out = {"seconds": seconds}
+    levels = fault_levels()
+
+    # --- (a) fig_fault_resilience at its defaults, both lanes
+    t = time.perf_counter()
+    victim_partition.launches = 0
+    rows = {}
+    by_level = {}
+    for level, spec in levels.items():
+        rs = by_level[level] = fault_level_run(thrash, level, spec, db)
+        check_runs(rs, dev)
+        cpu = fault_level_run(thrash, level, spec, db, device="cpu")
+        check(runs_plain(cpu) == runs_plain(rs),
+              f"faults@{level}: the CPU and CUDA lanes differ")
+        rows[level] = fault_rows(rs, thrash)
+        recs = [rs.record(policy=f"{k}_tuna") for k in KNEE_KINDS]
+        if spec is None:
+            check(all(r.fault_events is None for r in recs),
+                  "faults@none logged fault events")
+        else:
+            check(all(r.fault_events for r in recs), f"faults@{level}: no events")
+    check(all(any(d.degraded for d in by_level["harsh"].record(
+        policy=f"{k}_tuna").decisions) for k in KNEE_KINDS),
+        "faults@harsh: no degraded tuner decision")
+    del by_level
+    out["fault_rows"] = rows
+    out["fault_launches"] = victim_partition.launches
+    seconds["faults_s"] = time.perf_counter() - t
+
+    # --- (a) phase 4's trace under harsh faults: the paper's 20 sizes
+    # untuned with TPP+Tuna riding along in the same tuned sweep
+    t = time.perf_counter()
+    harsh = levels["harsh"]
+    n_int = len(full_thrash)
+    rs, split = real_size_run(lambda: api.run(api.Experiment(
+        name="faults@harsh[full]",
+        scenarios=[api.Scenario(trace=full_thrash, name="thrash_full@harsh",
+                                faults=harsh)],
+        fm_fracs=SWEEP_FRACS,
+        policies=[api.PolicySpec(label="tpp"),
+                  api.PolicySpec(label="tuna", fm_frac=1.0, tuner=paper_tuner())],
+    ), db=db), n_int)
+    check_runs(rs, dev)
+    check(all(r.fault_events for r in rs.runs), "real-size faults: no events")
+    pf = sum(r.result.stats["pgpromote_fail"] for r in rs.runs)
+    check(pf > 0, "real-size faults: pgpromote_fail stayed 0")
+    check(split["victim_partition_launches"] > 0,
+          "real-size faults never launched victim_partition")
+    tuna = rs.record(policy="tuna")
+    out["fault_full"] = {
+        "pages": full_thrash.rss_pages, "slices": len(rs.runs), **split,
+        "phase4_wall_ms_per_interval": phase4_split["wall_ms_per_interval"],
+        "phase4_device_ms_per_interval": phase4_split["device_ms_per_interval"],
+        "phase4_device_busy_share": phase4_split["device_busy_share"],
+        "pgpromote_fail_total": pf,
+        "fault_events_total": sum(len(r.fault_events) for r in rs.runs),
+        "tuna_degraded": degraded_counts(tuna.decisions),
+        "tuna_watermark_moves": len(tuna.watermark_log),
+    }
+    del rs
+    seconds["faults_full_s"] = time.perf_counter() - t
+
+    # --- (b) fig_fleet's three mixes at their defaults, both lanes
+    t = time.perf_counter()
+    victim_partition.launches = 0
+    mixes = {}
+    for mix, jobs in fleet_mix_jobs(**FLEET_SIZE).items():
+        tenants = fleet_tenants(jobs)
+        ref_rs, rs = run_mix(mix, tenants, db)
+        for r in (ref_rs, rs):
+            check_runs(r, dev)
+        cpu_ref, cpu = run_mix(mix, tenants, db, device="cpu")
+        check(runs_plain(cpu_ref) == runs_plain(ref_rs)
+              and runs_plain(cpu) == runs_plain(rs),
+              f"fleet {mix}: the CPU and CUDA lanes differ")
+        s = mix_summary(mix, tenants, ref_rs, rs)
+        check(s["arbiter_modes"], f"fleet {mix}: the arbiter never stepped")
+        if mix == "noisy":
+            s["victim_p99_delta"] = isolation_delta(s)
+            ceil_b = round(0.4 * tenants[2].trace.rss_pages)
+            check(all(e["granted"][2] <= ceil_b for e in
+                      rs.record(scenario="noisy/noisy", policy="fleet_tuna").arbiter_log),
+                  "fleet noisy: the ceiling did not bind")
+            # once more under harsh faults: it degrades and does not raise
+            h = fleet_run(mix, tenants, db, fleet_policies(), faults=harsh,
+                          name="fleet[noisy@harsh]")
+            check_runs(h, dev)
+            hc = fleet_run(mix, tenants, db, fleet_policies(), faults=harsh,
+                           name="fleet[noisy@harsh]", device="cpu")
+            check(runs_plain(hc) == runs_plain(h),
+                  "fleet noisy@harsh: the CPU and CUDA lanes differ")
+            tuned = [r for r in h.runs if r.policy == "fleet_tuna"]
+            check(all(r.fault_events for r in tuned), "fleet noisy@harsh: no events")
+            degraded = sum(d.degraded is not None for r in tuned for d in r.decisions)
+            check(degraded > 0, "fleet noisy@harsh: no degraded decision")
+            s["harsh"] = {"degraded_decisions": degraded,
+                          "degraded_arbitrations": sum(
+                              e["degraded"] for e in tuned[0].arbiter_log),
+                          "fault_events": sum(len(r.fault_events) for r in tuned),
+                          "modes": mode_counts(tuned[0].arbiter_log)}
+        mixes[mix] = s
+    out["fleet_mixes"] = mixes
+    out["fleet_launches"] = victim_partition.launches
+    seconds["fleet_mixes_s"] = time.perf_counter() - t
+
+    # --- (b) the skewed mix at phase 4's RSS, on the card only
+    t = time.perf_counter()
+    jobs = fleet_mix_jobs(**FLEET_FULL_SIZE)["skewed"]
+    traces = generate_traces({name: (w, kw) for name, w, kw, _ in jobs})
+    tenants = fleet_tenants(jobs, traces)
+    seconds["fleet_full_traces_s"] = time.perf_counter() - t
+    pages = sum(t_.trace.rss_pages for t_ in tenants)
+    check(pages == 3_250_584, f"the full-size fleet has {pages} pages")
+    full = {"pages": pages, "tenant_pages": [t_.trace.rss_pages for t_ in tenants]}
+    recs = {}
+    for pol in fleet_policies():
+        rs, split = real_size_run(
+            lambda: fleet_run("skewed_full", tenants, db, [pol]),
+            FLEET_FULL_SIZE["ni"])
+        check_runs(rs, dev)
+        check(split["victim_partition_launches"] > 0,
+              f"the full-size fleet ({pol.label}) never launched victim_partition")
+        full[pol.label] = split
+        recs[pol.label] = rs
+    full["fleet_tuna"]["modes"] = mode_counts(recs["fleet_tuna"].runs[0].arbiter_log)
+    full.update(stranded_summary(recs["fleet_tuna"], "skewed_full", tenants))
+    out["fleet_full"] = full
+    del recs, traces, tenants
+    seconds["fleet_full_s"] = time.perf_counter() - t
+
+    # --- (c) MultiTenantKV
+    t = time.perf_counter()
+    out["fleet_kv"] = fleet_kv_phase(dev)
+    torch.cuda.empty_cache()
+    seconds["fleet_kv_s"] = time.perf_counter() - t
+    return out
 
 
 def main() -> int:
@@ -2232,6 +2924,9 @@ def main() -> int:
     log("   paged_decode_attention: " + json.dumps(pa))
     log("   migrate_pages: " + json.dumps(mig))
     log("   strided_probe: " + json.dumps(probe))
+    # phase 6's pools go (their pinned blocks stay in PyTorch's host cache)
+    serve_capture.clear()
+    torch.cuda.empty_cache()
 
     model_capture: dict = {}
     served = {}
@@ -2253,6 +2948,7 @@ def main() -> int:
 
     t = time.perf_counter()
     paper = paper_experiment(dev)
+    paper_db, paper_thrash = paper.pop("db"), paper.pop("thrash_trace")
     log(f"== 10 the paper's experiment (Figs. 3-7, tau = {PAPER_TAU}) on the "
         f"card, CPU lane == CUDA lane, in {time.perf_counter() - t:.2f} s")
     for name, row in paper["rows"].items():
@@ -2265,6 +2961,27 @@ def main() -> int:
     log(f"   database: {paper['db_records']} records; victim_partition "
         f"launches {paper['victim_partition_launches']}; seconds "
         + json.dumps(paper["seconds"]))
+
+    t = time.perf_counter()
+    ff = faults_and_fleets(dev, paper_db, paper_thrash, capture.pop("trace"),
+                           summary["profile_sweep_split"])
+    ff["seconds"]["phase_s"] = time.perf_counter() - t
+    log(f"== 11 the fault model and the fleet on the card, CPU lane == CUDA "
+        f"lane, in {ff['seconds']['phase_s']:.2f} s")
+    for level, rows in ff["fault_rows"].items():
+        for kind, row in rows.items():
+            log(f"   faults {level}/{kind}: " + json.dumps(row))
+    log("   faults harsh at full size: " + json.dumps(ff["fault_full"]))
+    for mix, row in ff["fleet_mixes"].items():
+        log(f"   fleet {mix}: " + json.dumps(row))
+    log("   fleet skewed at full size: " + json.dumps(ff["fleet_full"]))
+    log("   MultiTenantKV: " + json.dumps(ff["fleet_kv"]))
+    log(f"   victim_partition launches: faults {ff['fault_launches']} + "
+        f"{ff['fault_full']['victim_partition_launches']} (full size), fleets "
+        f"{ff['fleet_launches']} + "
+        + " + ".join(str(ff["fleet_full"][p]["victim_partition_launches"])
+                     for p in ("static", "fleet_tuna"))
+        + " (full size); seconds " + json.dumps(ff["seconds"]))
 
     promote = mig["promote"]
     kernels = [{
@@ -2283,6 +3000,11 @@ def main() -> int:
         "cumsum_ms": vp["cumsum_ms"],
         "launches_paper": paper["victim_partition_launches"],
         "launches_big_btree": paper["big_btree"]["victim_partition_launches"],
+        "launches_faults": ff["fault_launches"],
+        "launches_faults_full": ff["fault_full"]["victim_partition_launches"],
+        "launches_fleets": ff["fleet_launches"],
+        "launches_fleet_full": sum(ff["fleet_full"][p]["victim_partition_launches"]
+                                   for p in ("static", "fleet_tuna")),
     }, {
         "name": "migrate_pages",
         "route": "cuda",
@@ -2304,6 +3026,7 @@ def main() -> int:
         "d2d_device_ms": mig["d2d"]["device_ms"],
         "d2d_index_copy_device_ms": mig["d2d"]["index_copy_device_ms"],
         "d2d_bound_ms": mig["d2d"]["bound_ms"],
+        "launches_fleet_kv": ff["fleet_kv"]["migrate_pages_launches"],
     }, {
         "name": "strided_probe",
         "route": "cuda",

@@ -12,6 +12,10 @@ same inputs to both packages.
   "fm_fracs", "times"}``;
 * a tuner configuration: the :class:`~repro_torch.core.tuner.TunerConfig`
   fields;
+* a fleet arbitration policy: the
+  :class:`~repro_torch.fleet.arbiter.ArbiterSpec` fields (a fault model
+  crosses through :meth:`repro_torch.sim.faults.FaultSpec.from_dict`, a
+  fleet's tenant traces as traces);
 * a KV page configuration and a hardware tier profile: their dataclass
   fields;
 * a page pool: a numpy array, whose bfloat16 (``ml_dtypes``, as the JAX
@@ -31,6 +35,7 @@ from repro_torch.core.perfdb import PerfDB, PerfRecord
 from repro_torch.core.telemetry import ConfigVector
 from repro_torch.core.trace import IntervalAccess, Trace
 from repro_torch.core.tuner import TunerConfig
+from repro_torch.fleet.arbiter import ArbiterSpec
 from repro_torch.serving.kv_cache import KVPageConfig
 from repro_torch.sim.costmodel import HardwareProfile
 
@@ -108,6 +113,11 @@ def perfdb_from_records(records) -> PerfDB:
 def tuner_config_from_dict(d: dict) -> TunerConfig:
     """A :class:`~repro_torch.core.tuner.TunerConfig` from its fields."""
     return TunerConfig(**d)
+
+
+def arbiter_spec_from_dict(d: dict) -> ArbiterSpec:
+    """A :class:`~repro_torch.fleet.arbiter.ArbiterSpec` from its fields."""
+    return ArbiterSpec(**d)
 
 
 def kv_page_config_from_dict(d: dict) -> KVPageConfig:

@@ -14,9 +14,9 @@ The offline component — sweeping configuration vectors through the
 micro-benchmark across fast-memory sizes to populate the database — is
 :func:`build_database`, which runs on the port's device sweep.
 
-Counterpart of :mod:`repro.core.tuner` without the fault model's hooks and
-the injected micro-benchmark backend, which later slices port; decisions
-are identical.
+Counterpart of :mod:`repro.core.tuner`, the fault model's hooks included
+(``fault_injector``: PerfDB outage windows keyed on the tuning step),
+without the injected micro-benchmark backend; decisions are identical.
 """
 
 from __future__ import annotations
@@ -84,9 +84,13 @@ class TunaTuner:
     cfg: TunerConfig = field(default_factory=TunerConfig)
     peak_rss_pages: int | None = None
     decisions: list = field(default_factory=list)
+    # a repro_torch.sim.faults.FaultInjector armed by its wire_tuner (kept
+    # untyped: no import cycle); None unless a run injects faults
+    fault_injector: object | None = None
     _ref_tpa: float | None = None  # time/access EMA at (near-)full fm
     _cooldown: int = 0
     _floor_frac: float = 0.0  # learned lower bound from feedback violations
+    _step_idx: int = -1  # tuning-step counter (keys db-outage windows)
     _db_fail_streak: int = 0  # consecutive PerfDB failures
     _db_backoff: int = 0  # windows left before the next query retry
     _shrink_armed: bool = False  # deep-shrink request awaiting confirmation
@@ -133,6 +137,7 @@ class TunaTuner:
         neither the feedback guard nor the database may act on counters
         that never arrived.
         """
+        self._step_idx += 1
         peak = self.peak_rss_pages or self.controller.pool.hw_capacity
         cur_frac = self.controller.pool.effective_fm_size / peak
         if not telemetry_ok or cv is None:
@@ -181,9 +186,17 @@ class TunaTuner:
         if self._db_backoff > 0:
             self._db_backoff -= 1
             return self._hold(cv, t, degraded="db_backoff")
-        try:
-            records = self.db.query(cv, k=self.cfg.k_neighbors)
-        except PerfDBUnavailable:
+        fi = self.fault_injector
+        outage = fi is not None and fi.db_outage(
+            self.controller.pool, self._step_idx
+        )
+        records = None
+        if not outage:
+            try:
+                records = self.db.query(cv, k=self.cfg.k_neighbors)
+            except PerfDBUnavailable:
+                outage = True
+        if outage:
             self._db_fail_streak += 1
             self._db_backoff = min(2 ** (self._db_fail_streak - 1), 8)
             frozen = self._db_fail_streak > self.cfg.db_retry_limit

@@ -3,8 +3,9 @@
 Tuning the fast memory size is actuated purely through the reclaim
 watermarks so that demotion happens in the background (kswapd analogue).
 The controller adds rate limiting and hysteresis and keeps an audit log.
-Counterpart of :mod:`repro.core.watermark` without the fault model's
-actuation lag and the fleet's per-tenant ceiling, which later slices port.
+Counterpart of :mod:`repro.core.watermark`, with the fault model's
+actuation lag (``lag_steps``) and the fleet's per-tenant ceiling
+(``max_fm_pages``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,13 @@ class WatermarkController:
     # ignore changes smaller than this fraction (hysteresis)
     deadband_frac: float = 0.005
     log: list = field(default_factory=list)
+    # actuation lag (fault model): a set_size request only takes effect
+    # lag_steps calls later. 0 (default) is the ideal immediate actuator.
+    lag_steps: int = 0
+    # hard upper bound on the fast-memory size (pages); None = hw capacity.
+    # The fleet layer pins a tenant's isolation ceiling here.
+    max_fm_pages: int | None = None
+    _pending: list = field(default_factory=list)
 
     def bind(self, pool: TieredPagePool) -> "WatermarkController":
         """Attach the pool this controller actuates; returns self."""
@@ -51,6 +59,15 @@ class WatermarkController:
             )
         cap = self.pool.hw_capacity
         cur = self.pool.effective_fm_size
+        if self.lag_steps > 0:
+            # delayed actuation: enqueue this request, apply the one from
+            # lag_steps calls ago (if any has matured yet)
+            self._pending.append(int(new_fm_pages))
+            if len(self._pending) <= self.lag_steps:
+                return cur
+            new_fm_pages = self._pending.pop(0)
+        if self.max_fm_pages is not None:
+            cap = min(cap, int(self.max_fm_pages))
         target = int(max(1, min(cap, new_fm_pages)))
         # a reached target is a no-op even at deadband 0 — it must not
         # append zero-delta events to the audit log

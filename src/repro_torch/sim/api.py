@@ -6,7 +6,12 @@ Counterpart of :mod:`repro.sim.api` for the batched sweep backends:
   :data:`repro_torch.sim.workloads.WORKLOADS`, or a zero-argument callable
   returning a trace; the hardware profile and fast-tier capacity; pool
   overrides; ``fast_only_at_full`` for the micro-benchmark's NP_slow = 0
-  baseline at full size);
+  baseline at full size; ``faults``, a :class:`~repro_torch.sim.faults.
+  FaultSpec` that turns on the seeded fault model);
+* :class:`repro_torch.fleet.FleetScenario`: N tenants sharing one
+  fast-memory budget, each tenant one slice of the device step, with a
+  fleet-level Tuna arbiter (``backend="fleet"``, one :class:`RunRecord`
+  per tenant named ``"{fleet}/{tenant}"``);
 * :class:`PolicySpec`: how pages are managed (a ``kind`` from
   :data:`repro_torch.tiering.policy.POLICIES` with its ``params``, plus an
   optional :class:`TunerSpec` that puts a Tuna tuner in the loop);
@@ -30,10 +35,12 @@ any tuner in the loop       one :func:`~repro_torch.sim.sweep._sweep_tuned`
 ==========================  ==================================================
 
 Results are bit-exact against the JAX package's ``run`` on its numpy sweep
-(``backend="sweep"`` / ``"tuned_sweep"``). What the JAX package's planner
-also does waits for a later slice of the port, and raises
-:class:`NotImplementedError` here: fault injection, custom runners, custom
-pool factories, fleets and non-batchable policy kinds. RunSet JSON, the
+(``backend="sweep"`` / ``"tuned_sweep"`` / ``"fleet"``), fault events
+(``RunRecord.fault_events``) and the fleet arbiter's log
+(``RunRecord.arbiter_log``) included. What the JAX package's planner also
+does waits for a later slice of the port, and raises
+:class:`NotImplementedError` here: custom runners, custom pool factories
+(the per-size engine) and non-batchable policy kinds. RunSet JSON, the
 result cache and process fan-out wait too.
 """
 
@@ -51,6 +58,7 @@ from repro_torch.core.tuner import TunaTuner, TunerConfig
 from repro_torch.core.watermark import WatermarkController
 from repro_torch.device import resolve_device
 from repro_torch.sim.costmodel import HardwareProfile, OPTANE_LIKE
+from repro_torch.sim.faults import FaultInjector, FaultSpec
 from repro_torch.sim.sweep import SimResult, TunedSlice, _sweep_fm_fracs, _sweep_tuned
 from repro_torch.tiering.policy import resolve_policy
 
@@ -64,7 +72,10 @@ __all__ = [
     "run",
 ]
 
-_LATER = "a later slice of the port (faults, fleet and timing in run)"
+_LATER = (
+    "a later slice of the port (the per-size engine, custom runners and "
+    "timing in run)"
+)
 
 
 @dataclass(frozen=True)
@@ -182,9 +193,11 @@ class Scenario:
 
     ``fast_only_at_full`` runs full-size slices (``fm_frac >= 1``) on
     ``trace.fast_only()``, the micro-benchmark's NP_slow = 0 baseline the
-    database build needs. ``faults``, ``runner`` and ``pool_factory`` exist
-    so that a scenario of the JAX package's shape is refused by name: they
-    wait for a later slice.
+    database build needs. ``faults`` turns on the seeded fault model (one
+    :class:`~repro_torch.sim.faults.FaultInjector` per constructed policy,
+    identical schedules). ``runner`` and ``pool_factory`` exist so that a
+    scenario of the JAX package's shape is refused by name: they wait for
+    a later slice.
     """
 
     trace: Trace | str | Callable[[], Trace] | None = None
@@ -194,7 +207,7 @@ class Scenario:
     seed: int = 0
     kswapd_batch: int | None = None
     fast_only_at_full: bool = False
-    faults: object | None = None
+    faults: FaultSpec | None = None
     runner: Callable | None = None
     pool_factory: Callable | None = None
 
@@ -232,10 +245,14 @@ class RunRecord:
     scenario: str
     policy: str
     fm_frac: float
-    backend: str  # "torch_sweep" | "torch_tuned_sweep"
+    backend: str  # "torch_sweep" | "torch_tuned_sweep" | "fleet"
     result: SimResult
     decisions: list | None = None  # TunerDecision list (tuned specs)
     watermark_log: list | None = None  # WatermarkEvent list (tuned specs)
+    fault_events: list | None = None  # injected-fault log (fault runs)
+    # fleet runs only: the arbiter's allocation events as plain dicts
+    # (shared across the fleet's tenant records)
+    arbiter_log: list | None = None
 
 
 @dataclass
@@ -308,6 +325,12 @@ def _effective_fm(cap: int, frac: float) -> int:
 def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
     """Every (policy, size) cell of one scenario, in (policy-major, size)
     order, plus the sweeps' chunked-loop count."""
+    if getattr(scenario, "is_fleet", False):
+        from repro_torch.fleet.runner import run_fleet_scenario
+
+        return run_fleet_scenario(
+            scenario, fm_fracs, policies, db, collect_configs, device=device
+        )
     sname = scenario.resolved_name
     trace = _resolve_trace(scenario)
     cap = int(scenario.hw_capacity_pages or trace.rss_pages)
@@ -322,6 +345,13 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
     def is_full(f: float) -> bool:
         return scenario.fast_only_at_full and f >= 1.0 - 1e-9
 
+    def with_injector(policy):
+        # one injector per constructed policy instance: identical seeded
+        # schedules, independent per-pool state
+        if scenario.faults is not None:
+            policy.fault_injector = FaultInjector(scenario.faults)
+        return policy
+
     cells: dict = {}
     chunked = 0
     groups: dict = {}  # (kind, hot_thr, params-json) -> [(pi, spec)]
@@ -333,7 +363,8 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
         if any(spec.tuner is not None for _, spec in group):
             # one tuned sweep per trace variant carries the whole group;
             # untuned specs ride along as tuner-free slices
-            policy = group[0][1].build_policy()
+            policy = with_injector(group[0][1].build_policy())
+            inj = policy.fault_injector
             by_variant: dict = {}
             for pi, spec in group:
                 for fi, f in enumerate(_spec_fracs(spec, fm_fracs)):
@@ -343,11 +374,14 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
                     slices.append(TunedSlice(float(f), tuner, te))
                     keys.append((pi, fi, float(f), spec, tuner))
             for full, (slices, keys) in by_variant.items():
+                flog = [] if inj is not None else None
                 results = _sweep_tuned(
                     trace.fast_only() if full else trace, slices,
-                    policy=policy, **common,
+                    policy=policy, faults=inj, fault_log=flog, **common,
                 )
-                for (pi, fi, f, spec, tuner), res in zip(keys, results):
+                for si, ((pi, fi, f, spec, tuner), res) in enumerate(
+                    zip(keys, results)
+                ):
                     cells[(pi, fi)] = RunRecord(
                         sname, spec.name, f, "torch_tuned_sweep", res,
                         decisions=(
@@ -356,11 +390,13 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
                         watermark_log=(
                             None if tuner is None else list(tuner.controller.log)
                         ),
+                        fault_events=None if flog is None else flog[si],
                     )
             chunked += policy.chunked_steps
             continue
         for pi, spec in group:
-            policy = spec.build_policy()
+            policy = with_injector(spec.build_policy())
+            inj = policy.fault_injector
             farr = np.asarray(_spec_fracs(spec, fm_fracs), dtype=np.float64)
             full = np.array([is_full(f) for f in farr], dtype=bool)
             parts = []
@@ -369,9 +405,10 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
             if not full.all():
                 parts.append((np.flatnonzero(~full), trace))
             for idxs, tr in parts:
+                flog = [] if inj is not None else None
                 res = _sweep_fm_fracs(
                     tr, farr[idxs], collect_configs=collect_configs,
-                    policy=policy, **common,
+                    policy=policy, faults=inj, fault_log=flog, **common,
                 )
                 for j, fi in enumerate(idxs):
                     f = float(farr[fi])
@@ -387,6 +424,7 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
                             stats=res.stats[j],
                             costs=list(res.costs[j]),
                         ),
+                        fault_events=None if flog is None else flog[j],
                     )
             chunked += policy.chunked_steps
     records = [
@@ -400,11 +438,12 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
 def _refuse_later_slices(scenarios) -> None:
     for sc in scenarios:
         if getattr(sc, "is_fleet", False):
-            raise NotImplementedError(f"fleet scenarios wait for {_LATER}")
+            continue  # tenants carry traces; the fleet runner checks them
         name = sc.resolved_name
-        if sc.faults is not None:
-            raise NotImplementedError(
-                f"scenario {name!r}: fault injection waits for {_LATER}"
+        if sc.faults is not None and not isinstance(sc.faults, FaultSpec):
+            raise TypeError(
+                f"scenario {name!r}: faults must be a FaultSpec, got "
+                f"{type(sc.faults).__name__}"
             )
         if sc.runner is not None:
             raise NotImplementedError(

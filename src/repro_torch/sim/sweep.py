@@ -6,9 +6,11 @@ fast-memory sizes; :func:`_sweep_tuned` does the same with a Tuna tuner in
 the loop of any slice (the TPP+Tuna closed loop), a slice without a tuner
 being a plain fixed-size run. Both execute on
 :func:`repro_torch.sim.torch_engine._sweep_run_torch`, on ``device``
-(``None`` = the card). The planner in :mod:`repro_torch.sim.api` is their
-caller: users describe runs as an :class:`~repro_torch.sim.api.Experiment`
-and call :func:`repro_torch.sim.api.run`.
+(``None`` = the card). ``faults`` (a :class:`repro_torch.sim.faults.
+FaultInjector`) injects the fault model; each slice's event log is then
+appended to ``fault_log``. The planner in :mod:`repro_torch.sim.api` is
+their caller: users describe runs as an :class:`~repro_torch.sim.api.
+Experiment` and call :func:`repro_torch.sim.api.run`.
 """
 
 from __future__ import annotations
@@ -75,6 +77,8 @@ def _sweep_fm_fracs(
     collect_configs: bool = False,
     kswapd_batch: int | None = None,
     policy=None,
+    faults=None,
+    fault_log: list | None = None,
     device=None,
 ) -> SweepResult:
     """Run ``trace`` once, concurrently at every fraction in ``fm_fracs``.
@@ -91,8 +95,11 @@ def _sweep_fm_fracs(
         policy = TPPPolicy(hot_thr=hot_thr)
     times, pools, configs_out, _, costs = _sweep_run_torch(
         trace, fm_fracs, policy, hw, hw_capacity_pages, seed,
-        collect_configs, kswapd_batch=kswapd_batch, device=device,
+        collect_configs, kswapd_batch=kswapd_batch, faults=faults,
+        device=device,
     )
+    if faults is not None and fault_log is not None:
+        fault_log.extend(faults.events(pool) for pool in pools)
     return SweepResult(
         name=trace.name,
         fm_fracs=fm_fracs,
@@ -112,6 +119,8 @@ def _sweep_tuned(
     seed: int = 0,
     kswapd_batch: int | None = None,
     policy=None,
+    faults=None,
+    fault_log: list | None = None,
     device=None,
 ) -> list:
     """Run ``trace`` once across a vector of :class:`TunedSlice` settings.
@@ -131,8 +140,10 @@ def _sweep_tuned(
         collect_configs=True,
         tuners=[sl.tuner for sl in slices],
         tune_everys=[sl.tune_every for sl in slices],
-        kswapd_batch=kswapd_batch, device=device,
+        kswapd_batch=kswapd_batch, faults=faults, device=device,
     )
+    if faults is not None and fault_log is not None:
+        fault_log.extend(faults.events(pool) for pool in pools)
     return [
         SimResult(
             name=trace.name,

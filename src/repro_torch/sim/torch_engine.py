@@ -33,6 +33,18 @@ from the device, and the thrash regime's victim identities are resolved on
 the host (:func:`~repro_torch.tiering.page_pool._resolve_step_victims`)
 for the interfering sizes only, from their gathered victim and winner
 rows. Page ids are never padded: every index is in range.
+
+Fault injection (``faults``, a :class:`repro_torch.sim.faults.
+FaultInjector`) adds the JAX package's hooks at the same points: each
+slice's interval cursor and kswapd budget before the schedule, the
+promotion filter after admission and before the ``promote_batch`` cut (its
+per-page retry state ``[n_slices, rss]`` on the device, its draws hashed on
+the host), the telemetry channel at each tuner step. Fleet mode
+(``page_owner``, :mod:`repro_torch.fleet`) makes the slices tenants over
+disjoint page ranges: each row allocates and promotes only its own pages
+(its row never holds another tenant's page, so the shared classification,
+candidate and victim passes need no change), telemetry and cost are per
+tenant, and a budget arbiter steps after the tuners.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from repro_torch.core.telemetry import IntervalProfiler
 from repro_torch.device import resolve_device
 from repro_torch.kernels.victim_partition import victim_partition
 from repro_torch.sim.costmodel import absorb_cache, effective_mlp, interval_time
+from repro_torch.sim.faults import FaultInjector
 from repro_torch.tiering.page_pool import (
     Tier,
     TieredPagePool,
@@ -61,10 +74,16 @@ _DECAY = 0.5 ** (1.0 / 2.0)
 
 def _require_torch_runnable(trace, policy, faults) -> None:
     """The eligibility contract (mirrored by the api.py planner checks)."""
-    if faults is not None:
+    if faults is not None and not isinstance(faults, FaultInjector):
+        raise TypeError(
+            "faults must be a repro_torch.sim.faults.FaultInjector, got "
+            f"{type(faults).__name__}"
+        )
+    pf = getattr(policy, "fault_injector", None)
+    if pf is not None and pf is not faults:
         raise ValueError(
-            "the torch sweep does not support fault injection yet; the "
-            "fault model comes with a later slice of the port"
+            "the policy's fault_injector must be the injector passed to the "
+            "sweep as faults (the device step keys both on one cursor)"
         )
     if not getattr(policy, "batchable", False):
         raise ValueError(
@@ -99,6 +118,40 @@ def _select_victims(tier, eff_all, d_demand_d):
     return order, ranked, vic
 
 
+def _filter_promotions(admitted, hot_ids, draws_d, fail_count, blocked_until,
+                       t: int, spec):
+    """The fault model's promotion filter for every slice at once.
+
+    ``admitted`` ``[n_slices, n_hot]`` are the admitted candidates (hot
+    pages in hottest-first order), ``draws_d`` the promotion channel's draw
+    per hot page at interval ``t``. A candidate in backoff is withheld
+    without an attempt; an attempt fails when its draw is below the rate; a
+    page's ``max_retries + 1``-th consecutive failure abandons it (its
+    retry state resets), a retrying one backs off ``backoff_base *
+    2**(streak - 1)`` intervals; a success clears the streak. Updates the
+    retry state in place and returns the kept candidates and the per-slice
+    ``[withheld, exhausted, transient, failed]`` counts.
+    """
+    bu = blocked_until[:, hot_ids]
+    fc = fail_count[:, hot_ids]
+    in_backoff = admitted & (bu > t)
+    attempt = admitted & ~in_backoff
+    fail = attempt & (draws_d < spec.promote_fail_rate)[None, :]
+    fc_new = fc + fail.to(torch.int64)
+    exhausted = fail & (fc_new > spec.max_retries)
+    retrying = fail & ~exhausted
+    fail_count[:, hot_ids] = torch.where(
+        (attempt & ~fail) | exhausted, 0, fc_new
+    )
+    backoff = t + spec.backoff_base * torch.pow(2, (fc_new - 1).clamp(min=0))
+    blocked_until[:, hot_ids] = torch.where(
+        exhausted, 0, torch.where(retrying, backoff, bu)
+    )
+    counts = torch.stack([in_backoff.sum(dim=1), exhausted.sum(dim=1),
+                          retrying.sum(dim=1), fail.sum(dim=1)])
+    return attempt & ~fail, counts
+
+
 def _sweep_run_torch(
     trace,
     fm_fracs: np.ndarray,
@@ -111,6 +164,9 @@ def _sweep_run_torch(
     tune_everys: list | None = None,
     kswapd_batch: int | None = None,
     faults=None,
+    page_owner: np.ndarray | None = None,
+    slice_caps: np.ndarray | None = None,
+    arbiter=None,
     device=None,
 ):
     """Device-backed counterpart of the JAX package's ``_sweep_run``.
@@ -118,7 +174,11 @@ def _sweep_run_torch(
     Same signature (plus ``device``: ``None`` = the card, ``"cpu"`` for the
     plain PyTorch path), same ``(times, pools, configs_out, fm_sizes,
     costs)`` return, bit-exact results. ``seed`` is accepted for signature
-    parity; the sweep draws no random numbers.
+    parity; the sweep draws no random numbers (fault draws are hashes).
+    Fleet mode: ``page_owner[p]`` is the slice owning page ``p``,
+    ``slice_caps`` each slice's hardware capacity, ``arbiter`` (a
+    :class:`repro_torch.fleet.arbiter.FleetTunaArbiter`) is stepped every
+    ``arbiter.every`` intervals after the tuner steps.
     """
     dev = resolve_device(device)
     _require_torch_runnable(trace, policy, faults)
@@ -130,6 +190,12 @@ def _sweep_run_torch(
     admit_margin = getattr(policy, "admit_margin", None)
     reuse_window = getattr(policy, "reuse_window", None)
     promote_batch = policy.promote_batch
+    fleet = page_owner is not None
+    caps = (
+        np.asarray(slice_caps, dtype=np.int64)
+        if slice_caps is not None
+        else np.full(n_sizes, cap, dtype=np.int64)
+    )
 
     # host slice pools: the control plane the profilers and tuners read;
     # their tier rows hold the initial placement and, after the run, the
@@ -138,22 +204,31 @@ def _sweep_run_torch(
     pools = []
     for s in range(n_sizes):
         pool = TieredPagePool.for_slice(
-            tier_b[s], hw_capacity=cap, page_bytes=hw.page_bytes,
+            tier_b[s], hw_capacity=int(caps[s]), page_bytes=hw.page_bytes,
             kswapd_batch=kswapd_batch,
         )
-        pool.set_fm_size(int(round(float(fm_fracs[s]) * cap)))
+        pool.set_fm_size(int(round(float(fm_fracs[s]) * int(caps[s]))))
         if trace.slow_pages is not None:
-            pool.place(trace.slow_pages, Tier.SLOW)
+            slow = trace.slow_pages
+            if fleet:  # a tenant slice places only its own pages
+                slow = slow[page_owner[slow] == s]
+            if slow.size:
+                pool.place(slow, Tier.SLOW)
         pools.append(pool)
     tuned = tuners is not None
     if tuned:
-        for pool, tuner in zip(pools, tuners):
+        for s, (pool, tuner) in enumerate(zip(pools, tuners)):
             if tuner is not None:
-                tuner.bind_pool(pool, cap)
+                tuner.bind_pool(pool, int(caps[s]))
+                if faults is not None:
+                    faults.wire_tuner(tuner)
 
     tier = _as_device(TieredPagePool._export_tier_stack(pools), dev)
     heat = torch.zeros(num_pages, dtype=torch.float64, device=dev)
-    allocated = tier_b[0] != _UNALLOC  # first touch is size-independent
+    # first touch is size-independent; a fleet page lives in its owner's row
+    allocated = (
+        tier_b[page_owner, np.arange(num_pages)] if fleet else tier_b[0]
+    ) != _UNALLOC
     slow8 = torch.tensor(_SLOW, dtype=torch.int8, device=dev)
     if reuse_window is not None:
         # ThrashGuardPolicy's per-size state: the step of each page's last
@@ -163,6 +238,18 @@ def _sweep_run_torch(
             (n_sizes, num_pages), -(2**62), dtype=torch.int64, device=dev
         )
         cooldown = torch.zeros(n_sizes, dtype=torch.int64, device=dev)
+    # the promotion filter is the policy's (as in the JAX package)
+    retry = (
+        policy.fault_injector is not None
+        and policy.fault_injector.spec.promote_fail_rate > 0.0
+    )
+    if retry:
+        # the promotion filter's per-slice retry state: each page's streak
+        # of consecutive failures and the interval its backoff ends
+        fail_count = torch.zeros(
+            (n_sizes, num_pages), dtype=torch.int64, device=dev
+        )
+        blocked_until = torch.zeros_like(fail_count)
 
     n_intervals = len(trace)
     times = np.zeros((n_sizes, n_intervals), dtype=np.float64)
@@ -186,12 +273,28 @@ def _sweep_run_torch(
         rep = np.minimum(ia.touches, hot_thr)
         # --- first-touch bookkeeping on the host: the new-page set is
         # size-independent, each size's fast prefix is its watermark budget
+        # (a tenant's prefix is taken within its own new pages)
         new_pages = pages[~allocated[pages]]
         n_fast = np.zeros(n_sizes, dtype=np.int64)
         if new_pages.size:
-            for s, pool in enumerate(pools):
-                n_fast[s] = pool._first_touch(new_pages.size)
+            if fleet:
+                new_owner = page_owner[new_pages]
+                new_rank = np.empty(new_pages.size, dtype=np.int64)
+                for s, pool in enumerate(pools):
+                    own = np.flatnonzero(new_owner == s)
+                    new_rank[own] = np.arange(own.size)
+                    n_fast[s] = pool._first_touch(own.size)
+            else:
+                for s, pool in enumerate(pools):
+                    n_fast[s] = pool._first_touch(new_pages.size)
             allocated[new_pages] = True
+        if faults is not None:
+            # each slice advances its fault cursor; its background-reclaim
+            # budget may be stalled or shed for this interval
+            base_kb = [pool.kswapd_batch for pool in pools]
+            for pool in pools:
+                faults.begin_interval(pool)
+                pool.kswapd_batch = faults.kswapd_budget(pool, pool.kswapd_batch)
         # --- schedule inputs: post-allocation, pre-step pool state
         free_a = np.array([p.fast_free for p in pools], dtype=np.int64)
         fastc_a = np.array([p.fast_used for p in pools], dtype=np.int64)
@@ -204,7 +307,12 @@ def _sweep_run_torch(
         touches_d = _as_device(ia.touches, dev)
         # --- first-touch allocation: per size a prefix of the new pages
         # (access order) goes fast, the rest slow
-        if new_pages.size:
+        if new_pages.size and fleet:
+            first = np.where(new_rank < n_fast[new_owner], _FAST, _SLOW)
+            tier[_as_device(new_owner, dev), _as_device(new_pages, dev)] = (
+                _as_device(first.astype(np.int8), dev)
+            )
+        elif new_pages.size:
             rank = torch.arange(new_pages.size, device=dev)
             tier[:, _as_device(new_pages, dev)] = torch.where(
                 rank[None, :] < _as_device(n_fast, dev)[:, None], _FAST, _SLOW
@@ -247,11 +355,33 @@ def _sweep_run_torch(
         else:
             admitted = slow_cand
         rejected_d = slow_cand.sum(dim=1) - admitted.sum(dim=1)
+        counts_d = [rejected_d]
+        if retry:
+            # injected transient promotion failures, after admission and
+            # before the promote_batch cut; the draw of a page depends only
+            # on (page, interval), hashed on the host over the hot pages
+            draws_d = _as_device(
+                faults.promotion_draws(hot_ids.cpu().numpy(), i), dev
+            )
+            admitted, fault_counts_d = _filter_promotions(
+                admitted, hot_ids, draws_d, fail_count, blocked_until, i,
+                faults.spec,
+            )
+            counts_d.extend(fault_counts_d)
         if promote_batch is not None:
             admitted = admitted & (torch.cumsum(admitted, dim=1) <= promote_batch)
         n_cand_d = admitted.sum(dim=1)
         # --- the promote/reclaim schedule of every size, on the host
-        n_cand, rejected = torch.stack([n_cand_d, rejected_d]).cpu().numpy()
+        n_cand, rejected, *fault_counts = (
+            torch.stack([n_cand_d, *counts_d]).cpu().numpy()
+        )
+        injected = np.zeros(n_sizes, dtype=np.int64)
+        if retry:
+            withheld, exhausted, transient, injected = fault_counts
+            for s, pool in enumerate(pools):
+                faults.record_promotion_faults(
+                    pool, withheld[s], exhausted[s], transient[s]
+                )
         pm_pr, pm_de, pm_fail, direct_total, events, d_demand = (
             _bulk_schedule_batch(
                 free_a, fastc_a, minf_a, lowf_a, highf_a, kswapd_a, n_cand
@@ -316,18 +446,40 @@ def _sweep_run_torch(
             pool._commit_step(
                 pm_pr[s], pm_de[s], direct_total[s], events[s], d_demand[s]
             )
+        if faults is not None:
+            for pool, kb in zip(pools, base_kb):
+                pool.kswapd_batch = kb
         sums = sums_d.cpu().numpy().astype(np.int64)
         pacc_f_all = sums[:, 0]
-        pacc_s_all = int(counts_mem.sum()) - pacc_f_all
         ptouch_f_all = sums[:, 1]
-        ptouch_s_all = int(rep.sum()) - ptouch_f_all
         warm_pages_all = sums[:, 2]
         warm_touch_all = sums[:, 3]
+        if fleet:
+            # per-tenant totals: only the pages a slice owns are its slow
+            # complement; the interval's ops split by access share
+            owner_t = page_owner[pages]
+            tot_counts = np.bincount(
+                owner_t, weights=counts_mem.astype(np.float64), minlength=n_sizes
+            ).astype(np.int64)
+            pacc_s_all = tot_counts - pacc_f_all
+            ptouch_s_all = np.bincount(
+                owner_t, weights=rep.astype(np.float64), minlength=n_sizes
+            ).astype(np.int64) - ptouch_f_all
+            total_c = int(counts_mem.sum())
+            ops_share = (
+                tot_counts / total_c
+                if total_c > 0
+                else np.zeros(n_sizes, dtype=np.float64)
+            )
+        else:
+            pacc_s_all = int(counts_mem.sum()) - pacc_f_all
+            ptouch_s_all = int(rep.sum()) - ptouch_f_all
         for s, pool in enumerate(pools):
+            ops_s = ia.ops * float(ops_share[s]) if fleet else ia.ops
             outcome = PolicyOutcome(
                 pm_pr=int(pm_pr[s]),
                 pm_de=int(pm_de[s]),
-                pm_fail=int(pm_fail[s]),
+                pm_fail=int(pm_fail[s]) + int(injected[s]),
                 direct_reclaim=int(direct_total[s]),
                 pm_admit_fail=int(rejected[s]),
             )
@@ -335,7 +487,7 @@ def _sweep_run_torch(
                 profilers[s].record_accesses(
                     int(ptouch_f_all[s]),
                     int(ptouch_s_all[s]),
-                    ia.ops,
+                    ops_s,
                     cachelines=int(pacc_f_all[s]) + int(pacc_s_all[s]),
                     warm_pages=int(warm_pages_all[s]),
                     warm_touches=int(warm_touch_all[s]),
@@ -346,7 +498,7 @@ def _sweep_run_torch(
                 hw,
                 pacc_f=int(pacc_f_all[s]),
                 pacc_s=int(pacc_s_all[s]),
-                ops=ia.ops,
+                ops=ops_s,
                 pm_pr=outcome.pm_pr,
                 pm_de=outcome.pm_de,
                 pm_fail=outcome.pm_fail,
@@ -370,9 +522,13 @@ def _sweep_run_torch(
                         c.pacc_f + c.pacc_s for c in configs_out[s][-te:]
                     )
                     tpa = sum(c.total for c in window) / max(acc, 1)
-                    tuner.step(
-                        configs_out[s][-1], t=t_now[s], measured_tpa=tpa
-                    )
+                    cv, ok = configs_out[s][-1], True
+                    if faults is not None:
+                        cv, tpa, ok = faults.telemetry(pools[s], cv, tpa)
+                    tuner.step(cv, t=t_now[s], measured_tpa=tpa, telemetry_ok=ok)
+        # --- fleet budget arbitration, after the tuner steps
+        if arbiter is not None and (i + 1) % arbiter.every == 0:
+            arbiter.step(pools, configs_out=configs_out, t_now=t_now, interval=i)
     # --- import the final device state into the host pools, and check it
     # against the counters the host kept
     final_fast = [pool.fast_used for pool in pools]

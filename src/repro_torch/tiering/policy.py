@@ -7,7 +7,8 @@ The decision semantics live in the device step
 contract (hot-threshold promotion, watermark reclaim), the trace-pure
 admission criterion of :class:`AdmissionTPPPolicy` and the per-size
 ping-pong backoff of :class:`ThrashGuardPolicy` for every swept size at
-once. The policy objects here carry only their parameters and flags. The
+once, and the fault model's promotion filter when ``fault_injector`` is
+set. The policy objects here carry only their parameters and flags. The
 non-migrating first-touch kind waits for a later slice, with the per-size
 engine it runs on.
 """
@@ -41,6 +42,10 @@ class TPPPolicy:
     interval (``None`` = unbounded). ``chunked_steps`` counts executions of
     a per-chunk fallback loop; the device step has none, so it stays 0 and
     is kept as the run's provenance, as in the JAX package.
+    ``fault_injector`` is the :class:`repro_torch.sim.faults.FaultInjector`
+    whose promotion filter the device step applies after admission (set
+    by the planner for fault-injected runs; ``None`` keeps the fault-free
+    step).
     """
 
     kind = "tpp"
@@ -53,6 +58,7 @@ class TPPPolicy:
         self.hot_thr = int(hot_thr)
         self.promote_batch = promote_batch
         self.chunked_steps = 0
+        self.fault_injector = None
 
 
 class AdmissionTPPPolicy(TPPPolicy):

@@ -251,14 +251,26 @@ def test_asking_for_the_card_without_a_gpu_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize(
-    "scenario_kw", [{"faults": object()}, {"runner": print}, {"pool_factory": dict}]
-)
+@pytest.mark.parametrize("scenario_kw", [{"runner": print}, {"pool_factory": dict}])
 def test_later_slice_scenarios_raise(scenario_kw):
     tr = to_port(pressure_trace(0, rss=500, n_intervals=2))
     with pytest.raises(NotImplementedError, match="later slice"):
         api.run(api.Experiment(scenarios=[api.Scenario(trace=tr, **scenario_kw)]),
                 device="cpu")
+
+
+def test_fault_scenarios_run():
+    # fault injection came with the fault model's slice: a scenario with a
+    # FaultSpec runs (tests/test_torch_faults.py holds it to the reference)
+    from repro_torch.sim.faults import FaultSpec
+
+    tr = to_port(pressure_trace(0, rss=500, n_intervals=4))
+    rs = api.run(api.Experiment(
+        scenarios=[api.Scenario(trace=tr, faults=FaultSpec(
+            seed=1, promote_fail_rate=0.5, max_retries=0))],
+        fm_fracs=(0.3,)), device="cpu")
+    assert rs.record().fault_events
+    assert rs.record().result.stats["pgpromote_fail"] > 0
 
 
 def test_later_slice_policy_kinds_raise():

@@ -428,3 +428,87 @@ def test_wkv6_refuses_a_bf16_decay(cuda):
     x = torch.zeros((1, 4, 2, 16), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         wkv6(x, x, x, x, torch.zeros((2, 16), device=cuda))
+
+
+def _runs_plain(rs):
+    from dataclasses import asdict
+
+    return [
+        (r.scenario, r.policy, r.fm_frac, r.backend, r.result.stats,
+         r.result.interval_times.tolist(), r.result.fm_sizes.tolist(),
+         [asdict(c) for c in r.result.configs],
+         None if r.decisions is None else [
+             {**d.__dict__, "config": asdict(d.config)} for d in r.decisions],
+         None if r.watermark_log is None else [e.__dict__ for e in r.watermark_log],
+         r.fault_events, r.arbiter_log)
+        for r in rs.runs
+    ]
+
+
+def _small_db():
+    from repro_torch import convert
+
+    grid = np.round(np.arange(1.0, 0.19, -0.05), 3)
+    return convert.perfdb_from_records([{
+        "config": dict(pacc_f=10_000, pacc_s=500, pm_de=20, pm_pr=20, ai=6.0,
+                       rss_pages=4_000, hot_thr=4, num_threads=1),
+        "fm_fracs": grid, "times": 1.0 + np.linspace(0.0, 0.4, grid.size),
+    }])
+
+
+HARSH = dict(seed=7, promote_fail_rate=0.2, max_retries=2, backoff_base=1,
+             demote_fail_rate=0.1, kswapd_stall_rate=0.05, kswapd_stall_len=2,
+             telemetry_drop_rate=0.15, telemetry_noise_rate=0.2,
+             telemetry_noise_scale=0.5, db_outage_rate=0.15, db_outage_len=2,
+             actuation_lag=1)
+
+
+def test_harsh_fault_sweep_on_the_card_equals_the_cpu_lane(cuda):
+    from repro_torch.sim import api
+    from repro_torch.sim.faults import FaultSpec
+    from repro_torch.sim.workloads import thrash_trace
+
+    tr = thrash_trace(rss_pages=3_000, n_intervals=10)
+    db = _small_db()
+    out = {}
+    for device in ("cpu", cuda):
+        before = victim_partition.launches
+        out[str(device)] = _runs_plain(api.run(api.Experiment(
+            scenarios=[api.Scenario(trace=tr, faults=FaultSpec(**HARSH))],
+            fm_fracs=(0.8, 0.45, 0.2),
+            policies=[api.PolicySpec(label="tpp"), api.PolicySpec(
+                label="tuna", fm_frac=1.0, tuner=api.TunerSpec(tune_every=2))],
+        ), db=db, device=device))
+        launched = victim_partition.launches - before
+    assert out["cpu"] == out["cuda"]
+    assert launched > 0
+    assert all(run[10] for run in out["cuda"])  # fault events on every slice
+
+
+def test_two_tenant_fleet_on_the_card_equals_the_cpu_lane(cuda):
+    from repro_torch.fleet import ArbiterSpec, FleetScenario, TenantSpec
+    from repro_torch.sim import api
+    from repro_torch.sim.faults import FaultSpec
+    from repro_torch.sim.workloads import thrash_trace
+
+    tenants = (
+        TenantSpec(trace=thrash_trace(rss_pages=3_000, n_intervals=10, seed=1), name="a"),
+        TenantSpec(trace=thrash_trace(rss_pages=2_000, n_intervals=8, seed=2),
+                   name="b", ceil_frac=0.4),
+    )
+    db = _small_db()
+    out = {}
+    for device in ("cpu", cuda):
+        before = victim_partition.launches
+        out[str(device)] = _runs_plain(api.run(api.Experiment(
+            scenarios=[FleetScenario(tenants=tenants, budget_frac=0.5,
+                                     arbiter=ArbiterSpec(every=2),
+                                     faults=FaultSpec(**HARSH))],
+            fm_fracs=(1.0,),
+            policies=[api.PolicySpec(label="static"), api.PolicySpec(
+                label="tuna", tuner=api.TunerSpec(target_loss=0.1, tune_every=2))],
+        ), db=db, device=device))
+        launched = victim_partition.launches - before
+    assert out["cpu"] == out["cuda"]
+    assert launched > 0
+    assert all(run[11] for run in out["cuda"] if run[1] == "tuna")  # arbiter log

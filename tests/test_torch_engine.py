@@ -28,6 +28,7 @@ from repro_torch.core.watermark import WatermarkController as PortController
 from repro_torch.kernels.victim_partition import victim_partition
 from repro_torch.sim import sweep as port_sweep
 from repro_torch.sim import torch_engine
+from repro_torch.sim.faults import FaultInjector, FaultSpec
 from repro_torch.sim.torch_engine import _require_torch_runnable
 from repro_torch.tiering import policy as port_policy
 
@@ -167,10 +168,20 @@ def test_cpu_lane_never_counts_kernel_launches():
 
 
 def test_eligibility_refuses_duplicates_and_faults():
+    # faults run since the fault model's slice; what is refused is a faults
+    # argument that is not a FaultInjector, or one the policy does not share
     tr = to_port(pressure_trace(0, rss=1_000, n_intervals=2))
     pol = port_policy.TPPPolicy()
-    with pytest.raises(ValueError, match="fault"):
+    with pytest.raises(TypeError, match="FaultInjector"):
         _require_torch_runnable(tr, pol, faults=object())
+    inj = FaultInjector(FaultSpec(promote_fail_rate=0.1))
+    _require_torch_runnable(tr, pol, faults=inj)
+    pol.fault_injector = FaultInjector(FaultSpec(promote_fail_rate=0.1))
+    with pytest.raises(ValueError, match="fault_injector"):
+        _require_torch_runnable(tr, pol, faults=inj)
+    pol.fault_injector = inj
+    _require_torch_runnable(tr, pol, faults=inj)
+    pol.fault_injector = None
     ia = tr.intervals[0]
     ia.pages = np.concatenate([ia.pages, ia.pages[:1]])
     ia.counts = np.concatenate([ia.counts, ia.counts[:1]])
