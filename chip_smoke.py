@@ -106,7 +106,32 @@ Phases, each of which must pass (any failure exits non-zero):
     and 512 Qwen3-1.7B KV pages, 3.76 GB pinned, an HBM budget of 512
     slots) through 200 seeded rounds with a rebalance every 8, on the CPU
     and on the card at a narrow page, bit for bit, then at the full page
-    with every page's content checked.
+    with every page's content checked;
+12. the per-size engine, custom runners and the timing engine on the card
+    (after the JAX package's ``benchmarks/fig1_motivation.py`` and
+    ``benchmarks/fig_model_fidelity.py``, through ``repro_torch.sim.api.
+    run`` with the ``first_touch`` kind, ``Scenario.pool_factory`` and
+    ``Scenario.runner``, and ``repro_torch.timing``), with the
+    ``timing_replay`` and ``victim_partition`` counts set to 0 just before
+    each part and read just after: (a) ``timing_replay`` against
+    ``replay_ref`` bit for bit (every call of (b) and (c) against the CPU
+    lanes' on the same inputs, W = 1 chains, one page hammered, writes,
+    pages twice in a window, an empty replay; and, run by spawned processes
+    beside the phase, the first launch of (d) with more than one block of
+    replays, the first replay of (g) whole, and a launch of the first 4,000
+    events of each of (g)'s 13 replays at their real sizes, repeated 10
+    times bit-identical); its bound is the serial chain, with the latency of
+    a dependent load and of a dependent float64 add measured in the run;
+    (b) ``calibrate``, CPU
+    lane == CUDA lane, residuals below 0.15; (c) the fidelity quick
+    contract, CPU lane == CUDA lane; (d) the fidelity experiment at its
+    defaults (7 workloads x 6 sizes, divergence per regime and per
+    workload); (e) Fig. 1 at its defaults (bfs and thrash x 7 sizes x
+    {tpp, first_touch}), CPU lane == CUDA lane, then over phase 4's trace;
+    (f) a ``pool_factory`` scenario == the device sweep, every kind; (g)
+    TPP at 0.75 over phase 4's trace through ``timing_runner``, every
+    interval replayed in one launch, bytes conserved and each replay at
+    least its channels' occupancy.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -116,6 +141,7 @@ package is imported.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -2154,9 +2180,9 @@ def paper_experiment(dev) -> dict:
         "victim_partition_launches": launches,
         "max_abs_err": big_err,
         "seconds": seconds,
-        # for phase 11, which reuses the database and the thrash trace
+        # for phases 11 and 12, which reuse the database and the traces
         "db": db,
-        "thrash_trace": traces["thrash"],
+        "traces": traces,
     }
 
 
@@ -2826,6 +2852,735 @@ def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12
+# The per-size engine, custom runners and the timing engine on the card:
+# the JAX package's benchmarks/fig1_motivation.py (Fig. 1: TPP against
+# first touch) and benchmarks/fig_model_fidelity.py (the interval cost model
+# against the address-level timing engine), rebuilt on the port's public
+# entry points: repro_torch.sim.api.run (the first_touch kind, pool_factory,
+# runner) and repro_torch.timing (calibrate, timing_runner).
+FIG1_GRID = (1.0, 0.95, 0.895, 0.8, 0.7, 0.5, 0.266)
+FIG1_SCENARIOS = ("bfs", "thrash")
+FIG1_PAPER = {"tpp_loss@0.895": 0.044, "ft_loss@0.895": 0.088, "tpp_loss@0.266": 0.302}
+FIDELITY_FRACS = (1.0, 0.9, 0.75, 0.6, 0.45, 0.3)
+FIDELITY_MAX_EVENTS = 50_000
+RESIDUAL_BOUND = 0.15  # fig_model_fidelity's contract bounds
+BALANCED_BOUND = 0.60
+TIMING_FULL_FRAC = 0.75  # the real-size timing lane: phase 4's trace, TPP
+REPLAY_PREFIX = 4_000  # events of each real-size replay in the prefix launch
+REPLAY_REPEATS = 10
+REPLAY_BLOCK = 128  # replays a block of csrc/timing_replay.cu (kThreads)
+PLAIN_WORKERS = 6  # spawned processes running replay_ref beside the phase
+F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+
+
+def fig1_run(traces: dict, device=None):
+    """fig1_motivation.py's experiment: bfs and thrash x FIG1_GRID x {tpp,
+    first_touch}, one run (both kinds on the device sweep)."""
+    from repro_torch.sim import api
+
+    return api.run(api.Experiment(
+        name="fig1_motivation",
+        scenarios=[api.Scenario(trace=traces[n], name=n) for n in FIG1_SCENARIOS],
+        fm_fracs=FIG1_GRID,
+        policies=[api.PolicySpec(label="tpp"),
+                  api.PolicySpec(kind="first_touch", label="first_touch")],
+    ), device=device)
+
+
+def fig1_rows(rs, scenarios=FIG1_SCENARIOS, grid=FIG1_GRID) -> dict:
+    """fig1_motivation.py's report numbers: per scenario and size the TPP
+    and first-touch losses against TPP at full size, TPP's migrations and
+    failed promotions."""
+    rows = {}
+    for name in scenarios:
+        base = rs.result(scenario=name, policy="tpp", fm_frac=1.0).total_time
+        rows[name] = {}
+        for f in grid:
+            tpp = rs.result(scenario=name, policy="tpp", fm_frac=f)
+            ft = rs.result(scenario=name, policy="first_touch", fm_frac=f)
+            rows[name][f] = {
+                "tpp_loss": (tpp.total_time - base) / base,
+                "ft_loss": (ft.total_time - base) / base,
+                "migrations": tpp.migrations,
+                "pgpromote_fail": tpp.stats["pgpromote_fail"],
+            }
+    return rows
+
+
+def fidelity_regime(counts, t_overhead: float, t_total: float) -> str:
+    """fig_model_fidelity.py's interval regimes."""
+    import numpy as np
+
+    if t_total <= 0.0 or counts.size == 0:
+        return "balanced"
+    if t_overhead / t_total > 0.25:
+        return "migration"
+    c = counts.astype(np.float64)
+    s1 = c.sum()
+    pr = (s1 * s1) / np.square(c).sum()
+    if pr < counts.size / 3.0:
+        return "skewed_mlp"
+    return "balanced"
+
+
+def clock_pair(tr, name: str, fracs=FIDELITY_FRACS, cal=None, seed: int = 0,
+               max_events: int = FIDELITY_MAX_EVENTS, device=None):
+    """Both clocks on one trace (fig_model_fidelity.clock_pair): the model
+    lane through the device sweep, the timing lane through
+    ``timing_runner``. Returns ``(model RunSet, timing RunSet)``."""
+    import functools
+
+    from repro_torch.sim import api
+    from repro_torch.sim.costmodel import OPTANE_LIKE
+    from repro_torch.timing import calibrate, timing_runner
+
+    if cal is None:
+        cal = calibrate(OPTANE_LIKE, max_events=max_events, seed=seed, device=device)
+    spec = api.PolicySpec(kind="tpp")
+    rs_model = api.run(api.Experiment(
+        name=f"fidelity_model[{name}]",
+        scenarios=[api.Scenario(trace=tr, name=name, seed=seed)],
+        fm_fracs=tuple(fracs), policies=[spec],
+    ), device=device)
+    runner = functools.partial(timing_runner, calibration=cal.to_dict(),
+                               max_events=max_events, device=device)
+    rs_timing = api.run(api.Experiment(
+        name=f"fidelity_timing[{name}]",
+        scenarios=[api.Scenario(trace=tr, name=name, seed=seed, runner=runner)],
+        fm_fracs=tuple(fracs), policies=[spec],
+    ), device=device)
+    return rs_model, rs_timing
+
+
+def divergences(tr, rs_model, rs_timing, fracs=FIDELITY_FRACS) -> dict:
+    """Per-regime per-interval divergence pooled over the size vector
+    (fig_model_fidelity.divergences)."""
+    import numpy as np
+
+    by_regime: dict = {}
+    per_frac: dict = {}
+    for f in fracs:
+        model = rs_model.record(fm_frac=f).result
+        payload = rs_timing.record(fm_frac=f).result
+        t_model = np.asarray(model.interval_times)
+        t_timing = np.asarray(payload["interval_times"])
+        check(t_model.size == t_timing.size, "clock lanes saw different interval counts")
+        d = (t_timing - t_model) / np.maximum(t_model, 1e-30)
+        per_frac[f] = d
+        for i, ia in enumerate(tr):
+            info = payload["intervals"][i]
+            reg = fidelity_regime(ia.counts, info["t_migrate"] + info["t_stall"],
+                                  info["total"])
+            by_regime.setdefault(reg, []).append(float(d[i]))
+    return {"per_frac": per_frac, "by_regime": by_regime}
+
+
+def fidelity_summary(rs_model, rs_timing) -> dict:
+    """Total-time divergence per size (fig_model_fidelity.fidelity_summary,
+    the table2 model-fidelity column)."""
+    import numpy as np
+
+    tm = rs_model.total_times()
+    tt = rs_timing.total_times()
+    d = (tt - tm) / np.maximum(tm, 1e-30)
+    return {"per_frac": [float(x) for x in d],
+            "mean_abs": float(np.mean(np.abs(d))), "max_abs": float(np.max(np.abs(d)))}
+
+
+def fidelity_quick(device=None) -> dict:
+    """fig_model_fidelity._quick_smoke: both clocks on small traces and the
+    divergence contract (calibration residuals, finite and positive times,
+    the balanced regime's bound, a bit-identical re-run). Returns the
+    timing payloads and regimes, for comparing lanes."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.sim.costmodel import OPTANE_LIKE
+    from repro_torch.sim.workloads import thrash_trace, xsbench_trace
+    from repro_torch.timing import calibrate
+
+    cal = calibrate(OPTANE_LIKE, max_events=FIDELITY_MAX_EVENTS, device=device)
+    for k, v in cal.residuals.items():
+        check(v <= RESIDUAL_BOUND, f"calibration residual {k}={v:.3f} exceeds {RESIDUAL_BOUND}")
+    small = {
+        "thrash": functools.partial(thrash_trace, n_intervals=10, rss_pages=4_000),
+        "xsbench": functools.partial(xsbench_trace, n_intervals=12, lookups=40_000),
+    }
+    fracs = (1.0, 0.7, 0.4)
+    out = {}
+    for name, factory in small.items():
+        tr = factory()
+        rs_model, rs_timing = clock_pair(tr, f"{name}_smoke", fracs=fracs, cal=cal,
+                                         device=device)
+        div = divergences(tr, rs_model, rs_timing, fracs=fracs)
+        for f, d in div["per_frac"].items():
+            check(bool(np.all(np.isfinite(d))), f"{name} fm={f}: non-finite divergence")
+            t = rs_timing.record(fm_frac=f).result["interval_times"]
+            check(all(x > 0 for x in t), f"{name} fm={f}: non-positive time")
+        bal = div["by_regime"].get("balanced", [])
+        if bal:
+            check(np.median(np.abs(bal)) <= BALANCED_BOUND,
+                  f"{name}: balanced-regime divergence {np.median(np.abs(bal)):.2f} "
+                  f"exceeds {BALANCED_BOUND}")
+        _, again = clock_pair(tr, f"{name}_smoke", fracs=fracs, cal=cal, device=device)
+        for f in fracs:
+            check(again.record(fm_frac=f).result["interval_times"]
+                  == rs_timing.record(fm_frac=f).result["interval_times"],
+                  f"{name} fm={f}: timing replay not deterministic")
+        out[name] = {
+            "payloads": [r.result for r in rs_timing.runs],
+            "model_times": [r.result.interval_times.tolist() for r in rs_model.runs],
+            "regimes": {r: [float(x) for x in ds] for r, ds in sorted(div["by_regime"].items())},
+        }
+    out["calibration"] = cal.to_dict()
+    return out
+
+
+def fidelity_run(traces: dict, cal, device=None) -> dict:
+    """fig_model_fidelity.run at its defaults: every workload x
+    FIDELITY_FRACS through both clocks; divergence per regime (pooled and
+    per workload) and the total-time divergence per workload."""
+    import numpy as np
+
+    pooled: dict = {}
+    rows = {}
+    for name, tr in traces.items():
+        t = time.perf_counter()
+        rs_model, rs_timing = clock_pair(tr, name, cal=cal, device=device)
+        wall_s = time.perf_counter() - t
+        div = divergences(tr, rs_model, rs_timing)
+        for f in FIDELITY_FRACS:
+            check(all(x > 0 for x in rs_timing.record(fm_frac=f).result["interval_times"]),
+                  f"fidelity {name} fm={f}: non-positive timing-lane time")
+        for reg, ds in div["by_regime"].items():
+            pooled.setdefault(reg, []).extend(ds)
+        rows[name] = {
+            "pages": tr.rss_pages, "intervals": len(tr), "wall_s": wall_s,
+            "events": sum(iv["events"] for r in rs_timing.runs
+                          for iv in r.result["intervals"]),
+            **fidelity_summary(rs_model, rs_timing),
+            "regimes": {r: {"n": len(ds), "mean_abs": float(np.mean(np.abs(ds))),
+                            "median_d": float(np.median(ds))}
+                        for r, ds in sorted(div["by_regime"].items())},
+        }
+    regimes = {r: {"n": len(ds), "mean_abs": float(np.mean(np.abs(ds)))}
+               for r, ds in sorted(pooled.items())}
+    mean = {r: v["mean_abs"] for r, v in regimes.items()}
+    bal = mean.get("balanced", 0.0)
+    concentrated = max(mean.get("skewed_mlp", 0.0), mean.get("migration", 0.0)) >= bal
+    return {"rows": rows, "regimes": regimes, "concentrated": concentrated}
+
+
+def replay_launch(replays: list):
+    """The flat launch arguments of ``replays`` (one launch, in order)."""
+    import torch
+
+    sizes = [r[0].numel() for r in replays]
+    dev = replays[0][0].device
+    ev_off = torch.zeros(len(replays) + 1, dtype=torch.int64)
+    ev_off[1:] = torch.cumsum(torch.tensor(sizes, dtype=torch.int64), dim=0)
+    return (torch.cat([r[0] for r in replays]), torch.cat([r[1] for r in replays]),
+            torch.cat([r[2] for r in replays]), torch.cat([r[3] for r in replays]),
+            ev_off.to(dev), torch.cat([r[4] for r in replays]),
+            torch.cat([r[5] for r in replays]), torch.cat([r[6] for r in replays]))
+
+
+def replay_cost(args) -> dict:
+    """Bytes, float64 operations and the bound of one launch of
+    ``timing_replay``. Bytes: events read once (page 4, tier 1, occ 8, lat 8),
+    the per-replay arrays, ``page_done`` zeroed (8 a page a replay), t_app
+    written; ``ready`` is this design's scratch and not counted. Operations:
+    about 6 float64 an event (2 adds, 2 subtracts, 2 maxima) at the card's
+    rate, and the serial chain (windows x a dependent load + events x a
+    dependent float64 add, the longest replay) with both links measured now
+    by ``chain_latency_ns`` over the launch's largest ``n_pages``. The bound
+    is the largest of the three; the chain counts as operations."""
+    from repro_torch.kernels.timing_replay import chain_bound_ms, chain_latency_ns
+
+    page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
+    n_ev = page.numel()
+    n_rep = w_slots.numel()
+    sizes = (ev_off[1:] - ev_off[:-1]).cpu()
+    windows = (sizes + w_slots.cpu() - 1) // w_slots.cpu()
+    bytes_moved = n_ev * 21 + n_rep * (8 * 4 + 16) + n_rep * 8 + int(n_pages.sum()) * 8
+    ops = 6 * n_ev
+    links = chain_latency_ns(int(n_pages.max()), page.device)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    chain_ms = chain_bound_ms(ev_off, w_slots, links)
+    ops_ms = max(ops / F64_OPS_PER_S * 1e3, chain_ms)
+    return {"events": n_ev, "replays": n_rep, "windows": int(windows.sum()),
+            "bytes": bytes_moved, "f64_ops": ops, **links,
+            "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def sub_launch(args, lo: int, hi: int) -> tuple:
+    """Replays ``lo:hi`` of one launch's arguments as a launch of their own:
+    the replays are independent, so each keeps its result."""
+    page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
+    a, b = int(ev_off[lo]), int(ev_off[hi])
+    return (page[a:b], tier[a:b], occ[a:b], lat[a:b], ev_off[lo:hi + 1] - a,
+            w_slots[lo:hi], chan[lo:hi], n_pages[lo:hi])
+
+
+def plain_replay(arrays) -> list:
+    """``timing_replay`` over host copies (numpy) of one launch's arguments,
+    that is its plain version ``replay_ref``; runs in a spawned process."""
+    import torch
+
+    from repro_torch.kernels.timing_replay import timing_replay
+
+    return timing_replay(*[torch.from_numpy(a) for a in arrays]).tolist()
+
+
+class PlainReplays:
+    """The plain version of main-path launches of ``timing_replay``, beside
+    the phase: each submitted launch is cut into chunks of replays, copied
+    to the host and replayed by ``replay_ref`` in spawned processes of one
+    torch thread each; :meth:`verify` holds the kernel's results against
+    them bit for bit."""
+
+    def __init__(self):
+        import multiprocessing
+        import os
+        from concurrent.futures import ProcessPoolExecutor
+
+        import torch
+
+        self.ex = ProcessPoolExecutor(
+            max_workers=max(1, min(PLAIN_WORKERS, (os.cpu_count() or 2) - 2)),
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=torch.set_num_threads, initargs=(1,))
+        self.jobs = []
+
+    def submit(self, name: str, args, got, chunk: int) -> None:
+        n = got.numel()
+        futs = [self.ex.submit(plain_replay, [a.cpu().numpy() for a in
+                                              sub_launch(args, lo, min(n, lo + chunk))])
+                for lo in range(0, n, chunk)]
+        self.jobs.append((name, got.cpu().tolist(), futs))
+
+    def verify(self) -> dict:
+        out = {}
+        for name, got, futs in self.jobs:
+            want = [x for f in futs for x in f.result()]
+            bad = [r for r, (a, b) in enumerate(zip(got, want)) if a != b]
+            check(len(got) == len(want) and not bad,
+                  f"timing_replay differs from replay_ref on {name}, replays {bad[:8]}: "
+                  f"{[got[r] for r in bad[:8]]} vs {[want[r] for r in bad[:8]]}")
+            out[name] = len(got)
+        return out
+
+    def close(self) -> None:
+        self.ex.shutdown(wait=True, cancel_futures=True)
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """The CPU lanes of the replay run thousands of tiny torch ops, one
+    window at a time: one intra-op thread, since idle pool threads only
+    spin beside them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+class ReplayRecorder:
+    """Wraps ``repro_torch.timing.engine.timing_replay``: keeps the
+    arguments, result and seconds (synchronized) of every call, or with
+    ``min_replays`` of the first call with more replays than that only, so
+    that the card's calls can be held against the plain version."""
+
+    def __init__(self, min_replays: int | None = None):
+        from repro_torch.kernels.timing_replay import timing_replay
+
+        self.fn = timing_replay
+        self.min_replays = min_replays
+        self.calls = []
+        self.seconds = 0.0
+
+    def __call__(self, *args):
+        import torch
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        self.seconds += dt
+        if self.min_replays is None or (not self.calls and out.numel() > self.min_replays):
+            self.calls.append((args, out.cpu(), dt))
+        return out
+
+    def __enter__(self):
+        from repro_torch.timing import engine
+
+        engine.timing_replay = self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.timing import engine
+
+        engine.timing_replay = self.fn
+        return False
+
+
+def replay_checks(dev, card_calls: list, cpu_calls: list, plain: PlainReplays,
+                  prefix) -> dict:
+    """(a): ``timing_replay`` on the card == ``replay_ref`` on the CPU,
+    bit for bit: every call the card lanes of (b) and (c) made against the
+    CPU lanes' calls of the plain version (the same inputs, built on each
+    device, must be equal too), synthetic edge cases (W = 1 chains, one
+    page hammered, writes, pages twice in a window, an empty replay between
+    others), the main path's launches that ``plain`` replayed beside the
+    phase (a fidelity launch over several blocks, a whole real-size replay,
+    the real-size prefix launch), and ``REPLAY_REPEATS`` identical launches
+    of the prefix launch ``prefix`` = (arguments, result)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.timing_replay import timing_replay
+    from repro_torch.sim.costmodel import OPTANE_LIKE
+    from repro_torch.timing import AddressTimingEngine, TimingParams
+
+    def cpu(x):
+        return x.cpu()
+
+    # the recorded launches: the card's inputs and results against the CPU
+    # lane's (replay_ref over the streams the CPU built)
+    check(len(card_calls) == len(cpu_calls), "the lanes made different numbers "
+          "of timing_replay calls")
+    n = 0
+    err = 0.0
+
+    def diff(a, b) -> float:
+        return float((a.cpu() - b.cpu()).abs().max()) if a.numel() else 0.0
+
+    for k, ((c_args, c_out, _), (p_args, p_out, _)) in enumerate(zip(card_calls, cpu_calls)):
+        check(all(torch.equal(cpu(a), b) for a, b in zip(c_args, p_args)),
+              f"timing_replay call {k}: the card built other events than the CPU")
+        err = max(err, diff(c_out, p_out))
+        check(torch.equal(c_out, p_out), f"timing_replay call {k}: the kernel "
+              f"differs from replay_ref: {c_out.tolist()} vs {p_out.tolist()}")
+        n += c_out.numel()
+    # synthetic streams, built by the engine on the card
+    rng = np.random.default_rng(12)
+    w1 = AddressTimingEngine(dataclasses.replace(
+        TimingParams.from_profile(OPTANE_LIKE, max_events=5_000), window=1.0),
+        seed=3, device=dev)
+    eng = AddressTimingEngine(TimingParams.from_profile(OPTANE_LIKE, max_events=20_000),
+                              seed=4, device=dev)
+    cases = {
+        "w1_chains": (w1, dict(counts=rng.integers(1, 40, size=300), num_threads=1,
+                               tiers=rng.integers(0, 2, size=300), rand_frac=0.8)),
+        "one_page": (eng, dict(counts=np.array([60_000]), tiers=np.array([1]))),
+        "writes": (eng, dict(counts=rng.integers(1, 200, size=2_000),
+                             tiers=rng.integers(0, 2, size=2_000), rand_frac=0.6,
+                             writes=rng.integers(0, 100, size=2_000), pm_pr=40, pm_de=25)),
+        "dup_pages": (eng, dict(counts=np.full(3, 5_000), tiers=np.array([0, 1, 0]))),
+    }
+    synth = []
+    for name, (e, kw) in cases.items():
+        counts = np.asarray(kw.pop("counts"), dtype=np.int64)
+        kw.setdefault("num_threads", 2)
+        part, stream = e._prepare(index=7, pages=np.arange(counts.size), counts=counts,
+                                  tiers=np.asarray(kw.pop("tiers"), dtype=np.int8),
+                                  ops=0.0, **kw)
+        ev, w, chan = stream
+        synth.append((name, ev, w, chan))
+    reps = [(ev.page, ev.tier, ev.occ, ev.lat,
+             torch.tensor([w], dtype=torch.int64, device=dev),
+             torch.tensor([chan], dtype=torch.float64, device=dev),
+             torch.tensor([ev.n_pages], dtype=torch.int64, device=dev))
+            for _, ev, w, chan in synth]
+    empty = (reps[0][0][:0], reps[0][1][:0], reps[0][2][:0], reps[0][3][:0],
+             reps[0][4], torch.tensor([[3e-6, 5e-6]], dtype=torch.float64, device=dev),
+             reps[0][6])
+    launch = replay_launch(reps[:2] + [empty] + reps[2:])
+    got_t = timing_replay(*launch)
+    with one_cpu_thread():
+        want_t = timing_replay(*[cpu(a) for a in launch])
+    err = max(err, diff(got_t, want_t))
+    got, want = got_t.tolist(), want_t.tolist()
+    check(got == want, f"timing_replay differs from replay_ref on the edge cases: "
+          f"{got} vs {want}")
+    check(got[2] == 5e-6, "an empty replay must end at its channel preload")
+    check(synth[0][2] == 1, "the W = 1 case did not get one-event windows")
+    # the main path's launches against the plain version beside the phase
+    main_path = plain.verify()
+    # the real-size prefix launch, repeated
+    args, got = prefix
+    for _ in range(REPLAY_REPEATS):
+        check(torch.equal(timing_replay(*args), got),
+              "timing_replay is not bit-identical across repeats")
+    return {"recorded_replays": n, "edge_cases": [s[0] for s in synth] + ["empty"],
+            "main_path_replays": main_path, "prefix_events": int(args[0].numel()),
+            "repeats": REPLAY_REPEATS, "max_abs_err": err}
+
+
+def timing_full(dev, trace) -> tuple:
+    """(g): phase 4's trace under TPP at TIMING_FULL_FRAC through
+    ``timing_runner`` on the card, every interval replayed in one launch;
+    conservation checks; the host schedule's seconds against the replay's.
+    Returns the row and the launch's (arguments, result)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.timing_replay import timing_replay
+    from repro_torch.sim import api
+    from repro_torch.sim.costmodel import OPTANE_LIKE
+    from repro_torch.timing import absorb_llc, timing_runner
+
+    hw = OPTANE_LIKE
+    torch.cuda.synchronize()
+    timing_replay.launches = 0
+    t = time.perf_counter()
+    with ReplayRecorder() as rec:
+        payload = timing_runner(api.Scenario(trace=trace), TIMING_FULL_FRAC,
+                                api.PolicySpec(kind="tpp"), None, device=dev)
+    wall_s = time.perf_counter() - t
+    launches = timing_replay.launches
+    check(launches == 1, f"the real-size timing lane launched timing_replay "
+          f"{launches} times, not once")
+    args, t_app, _ = rec.calls[0]
+    ivs = payload["intervals"]
+    check(len(ivs) == len(trace) and len(payload["interval_times"]) == len(trace),
+          "the real-size timing lane lost intervals")
+    cl = max(1, hw.page_bytes // hw.access_bytes)
+    page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
+    off = ev_off.tolist()
+    r = 0
+    for i, (ia, iv) in enumerate(zip(trace, ivs)):
+        lines = int(absorb_llc(np.asarray(ia.counts, dtype=np.int64), hw.llc_pages, cl).sum())
+        check(iv["bytes_fast"] + iv["bytes_slow"] == lines * hw.access_bytes,
+              f"interval {i}: bytes not conserved")
+        check(np.isfinite(iv["total"]) and iv["total"] > 0, f"interval {i}: bad time")
+        if not iv["events"]:
+            continue
+        s = slice(off[r], off[r + 1])
+        floor = max(float(chan[r, tr]) + float(occ[s][tier[s] == tr].sum())
+                    for tr in (0, 1))
+        check(iv["t_app"] >= floor * (1 - 1e-9),
+              f"interval {i}: t_app {iv['t_app']} below its channel occupancy {floor}")
+        check(iv["t_app"] == float(t_app[r]), f"interval {i}: t_app not the kernel's")
+        r += 1
+    cost = replay_cost(args)
+    row = {"pages": trace.rss_pages, "intervals": len(trace), "fm_frac": TIMING_FULL_FRAC,
+           "wall_s": wall_s, "replay_s": rec.seconds,
+           "host_schedule_and_build_s": wall_s - rec.seconds,
+           "events_per_interval": [iv["events"] for iv in ivs],
+           "scale_per_interval": [iv["scale"] for iv in ivs],
+           "w_slots": w_slots.tolist(), "launches": launches,
+           "total_time_s": payload["total_time"],
+           "migrations": payload["migrations"],
+           "page_done_bytes": int(n_pages.sum()) * 8, **cost}
+    return row, (args, t_app)
+
+
+def prefix_launch(args) -> tuple:
+    """The first REPLAY_PREFIX events of every replay of one launch, each
+    with its own real ``n_pages``, window and preload, launched together
+    on the card: several real-size ``page_done`` rows at distinct offsets.
+    Returns (arguments, result)."""
+    from repro_torch.kernels.timing_replay import timing_replay
+
+    page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
+    off = ev_off.tolist()
+    reps = []
+    for r in range(w_slots.numel()):
+        s = slice(off[r], min(off[r + 1], off[r] + REPLAY_PREFIX))
+        reps.append((page[s], tier[s], occ[s], lat[s], w_slots[r:r + 1],
+                     chan[r:r + 1], n_pages[r:r + 1]))
+    launch = replay_launch(reps)
+    return launch, timing_replay(*launch)
+
+
+def fig1_full(trace) -> dict:
+    """(e) at phase 4's RSS: Fig. 1's grid, TPP and first touch, one device
+    pass each."""
+    from repro_torch.kernels.victim_partition import victim_partition
+    from repro_torch.sim import api
+
+    victim_partition.launches = 0
+    t = time.perf_counter()
+    rs = api.run(api.Experiment(
+        name="fig1_full", scenarios=[api.Scenario(trace=trace, name="full")],
+        fm_fracs=FIG1_GRID,
+        policies=[api.PolicySpec(label="tpp"),
+                  api.PolicySpec(kind="first_touch", label="first_touch")],
+    ))
+    wall_s = time.perf_counter() - t
+    rows = fig1_rows(rs, scenarios=("full",))["full"]
+    return {"pages": trace.rss_pages, "intervals": len(trace), "wall_s": wall_s,
+            "victim_partition_launches": victim_partition.launches,
+            "rows": {str(f): v for f, v in rows.items()}}
+
+
+def per_size_engine(dev, thrash) -> dict:
+    """(f): a ``pool_factory`` scenario (the port's TieredPagePool through
+    functools.partial) against the device sweep's records, every kind."""
+    import functools
+
+    from repro_torch.sim import api
+    from repro_torch.tiering.page_pool import TieredPagePool
+
+    fracs = (1.0, 0.5, 0.266)
+    kinds = ("tpp", "admission", "thrash_guard", "first_touch")
+    policies = [api.PolicySpec(kind=k, label=k) for k in kinds]
+    t = time.perf_counter()
+    per_size = api.run(api.Experiment(
+        name="per_size", collect_configs=True, fm_fracs=fracs, policies=policies,
+        scenarios=[api.Scenario(trace=thrash, name="thrash", kswapd_batch=256,
+                                pool_factory=functools.partial(
+                                    TieredPagePool, hotness_halflife=2.0))],
+    ))
+    per_size_s = time.perf_counter() - t
+    sweep = api.run(api.Experiment(
+        name="per_size", collect_configs=True, fm_fracs=fracs, policies=policies,
+        scenarios=[api.Scenario(trace=thrash, name="thrash", kswapd_batch=256)],
+    ))
+    check(per_size.backends == ("simulate",) and sweep.backends == ("torch_sweep",),
+          f"backends {per_size.backends} / {sweep.backends}")
+
+    def strip(rows):
+        return [{**r, "cell": r["cell"][:3]} for r in rows]
+
+    check(strip(runs_plain(per_size)) == strip(runs_plain(sweep)),
+          "the per-size engine and the device sweep differ")
+    return {"cells": len(per_size.runs), "per_size_s": per_size_s,
+            "migrations": {r.policy + "@" + str(r.fm_frac): r.result.migrations
+                           for r in per_size.runs}}
+
+
+def timing_phase(dev, traces: dict, full_trace) -> dict:
+    """Phase 12: the replay kernel against its plain version, calibration
+    and the fidelity quick contract (CPU == CUDA), the fidelity experiment
+    and Fig. 1 at their defaults, Fig. 1 at phase 4's RSS, the per-size
+    engine against the device sweep, and the timing lane at real size."""
+    import torch
+
+    from repro_torch.kernels.timing_replay import timing_replay
+    from repro_torch.kernels.victim_partition import victim_partition
+    from repro_torch.sim.costmodel import OPTANE_LIKE
+    from repro_torch.timing import calibrate
+
+    seconds = {}
+    out = {"seconds": seconds}
+    # --- (b) calibration, both lanes
+    t = time.perf_counter()
+    with ReplayRecorder() as cal_rec:
+        cal = calibrate(OPTANE_LIKE, max_events=FIDELITY_MAX_EVENTS, device=dev)
+    with ReplayRecorder() as cal_cpu_rec, one_cpu_thread():
+        cal_cpu = calibrate(OPTANE_LIKE, max_events=FIDELITY_MAX_EVENTS, device="cpu")
+    check(cal.to_dict() == cal_cpu.to_dict(), "calibrate: the CPU and CUDA lanes differ")
+    check(all(v < RESIDUAL_BOUND for v in cal.residuals.values()),
+          f"calibration residuals {cal.residuals} reach {RESIDUAL_BOUND}")
+    out["calibration"] = cal.to_dict()
+    seconds["calibrate_s"] = time.perf_counter() - t
+
+    # --- (c) the fidelity quick contract, both lanes
+    t = time.perf_counter()
+    with ReplayRecorder() as quick_rec:
+        quick = fidelity_quick(dev)
+    with ReplayRecorder() as quick_cpu_rec, one_cpu_thread():
+        check(fidelity_quick("cpu") == quick, "fidelity quick contract: the CPU and "
+              "CUDA lanes differ")
+    out["quick_regimes"] = {name: {r: len(ds) for r, ds in q["regimes"].items()}
+                            for name, q in quick.items() if name != "calibration"}
+    seconds["quick_s"] = time.perf_counter() - t
+
+    plain = PlainReplays()
+    try:
+        # --- (d) the fidelity experiment at its defaults, on the card; its
+        # first launch over more than one block of replays goes to the plain
+        # version beside the phase
+        t = time.perf_counter()
+        victim_partition.launches = 0
+        timing_replay.launches = 0
+        with ReplayRecorder(min_replays=REPLAY_BLOCK) as fid_rec:
+            fid = fidelity_run(traces, cal, dev)
+        out["fidelity"] = fid
+        out["launches_fidelity"] = victim_partition.launches
+        out["launches_timing_replay"] = timing_replay.launches
+        check(out["launches_timing_replay"] > 0, "the fidelity path never launched timing_replay")
+        check(out["launches_fidelity"] > 0, "the fidelity model lane never launched "
+              "victim_partition")
+        check(len(fid_rec.calls) == 1, f"no fidelity launch spans more than {REPLAY_BLOCK} "
+              "replays")
+        args, got, _ = fid_rec.calls[0]
+        plain.submit(f"a fidelity launch of {got.numel()} replays", args, got,
+                     chunk=-(-got.numel() // PLAIN_WORKERS))
+        del fid_rec
+        seconds["fidelity_s"] = time.perf_counter() - t
+
+        # --- (e) Fig. 1 at its defaults, both lanes; then at phase 4's RSS
+        t = time.perf_counter()
+        victim_partition.launches = 0
+        fig1 = fig1_run(traces, device=dev)
+        out["launches_fig1"] = victim_partition.launches
+        check(out["launches_fig1"] > 0, "Fig. 1 never launched victim_partition")
+        check(runs_plain(fig1_run(traces, device="cpu")) == runs_plain(fig1),
+              "Fig. 1: the CPU and CUDA lanes differ")
+        rows = fig1_rows(fig1)
+        out["fig1"] = {n: {str(f): v for f, v in r.items()} for n, r in rows.items()}
+        out["fig1_bfs_summary"] = {
+            "tpp_loss@0.895": rows["bfs"][0.895]["tpp_loss"],
+            "ft_loss@0.895": rows["bfs"][0.895]["ft_loss"],
+            "tpp_loss@0.266": rows["bfs"][0.266]["tpp_loss"],
+            "paper": FIG1_PAPER,
+        }
+        seconds["fig1_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["fig1_full"] = fig1_full(full_trace)
+        seconds["fig1_full_s"] = time.perf_counter() - t
+
+        # --- (f) the per-size engine through pool_factory == the device sweep
+        t = time.perf_counter()
+        out["per_size"] = per_size_engine(dev, traces["thrash"])
+        seconds["per_size_s"] = time.perf_counter() - t
+
+        # --- (g) the timing lane at real size; its first (whole) replay and
+        # a launch of every replay's prefix go to the plain version
+        t = time.perf_counter()
+        out["timing_full"], (args, got) = timing_full(dev, full_trace)
+        plain.submit(f"the whole first replay at {full_trace.rss_pages} pages "
+                     f"({out['timing_full']['events_per_interval'][0]} events)",
+                     sub_launch(args, 0, 1), got[:1], chunk=1)
+        prefix = prefix_launch(args)
+        plain.submit(f"the first {REPLAY_PREFIX} events of each of {got.numel()} "
+                     "real-size replays, one launch", *prefix, chunk=1)
+        del args, got
+        seconds["timing_full_s"] = time.perf_counter() - t
+
+        # --- (a) the replay kernel against its plain version
+        t = time.perf_counter()
+        out["replay_checks"] = replay_checks(dev, cal_rec.calls + quick_rec.calls,
+                                             cal_cpu_rec.calls + quick_cpu_rec.calls,
+                                             plain, prefix)
+    finally:
+        plain.close()
+    # timed on the quick contract's largest launch: the kernel by CUDA events,
+    # the plain version by the CPU lane's call on the same inputs (one thread)
+    k = max(range(len(quick_rec.calls)), key=lambda i: quick_rec.calls[i][0][0].numel())
+    args = quick_rec.calls[k][0]
+    ms = cuda_ms(lambda: timing_replay(*args), repeats=10, warmup=1)
+    plain_ms = quick_cpu_rec.calls[k][2] * 1e3
+    out["replay_timed"] = {"ms": ms, "plain_ms": plain_ms, **replay_cost(args)}
+    seconds["replay_checks_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch is missing next to this script; "
@@ -2948,7 +3703,7 @@ def main() -> int:
 
     t = time.perf_counter()
     paper = paper_experiment(dev)
-    paper_db, paper_thrash = paper.pop("db"), paper.pop("thrash_trace")
+    paper_db, paper_traces = paper.pop("db"), paper.pop("traces")
     log(f"== 10 the paper's experiment (Figs. 3-7, tau = {PAPER_TAU}) on the "
         f"card, CPU lane == CUDA lane, in {time.perf_counter() - t:.2f} s")
     for name, row in paper["rows"].items():
@@ -2963,7 +3718,7 @@ def main() -> int:
         + json.dumps(paper["seconds"]))
 
     t = time.perf_counter()
-    ff = faults_and_fleets(dev, paper_db, paper_thrash, capture.pop("trace"),
+    ff = faults_and_fleets(dev, paper_db, paper_traces["thrash"], capture["trace"],
                            summary["profile_sweep_split"])
     ff["seconds"]["phase_s"] = time.perf_counter() - t
     log(f"== 11 the fault model and the fleet on the card, CPU lane == CUDA "
@@ -2982,6 +3737,32 @@ def main() -> int:
         + " + ".join(str(ff["fleet_full"][p]["victim_partition_launches"])
                      for p in ("static", "fleet_tuna"))
         + " (full size); seconds " + json.dumps(ff["seconds"]))
+
+    t = time.perf_counter()
+    tm = timing_phase(dev, paper_traces, capture.pop("trace"))
+    tm["seconds"]["phase_s"] = time.perf_counter() - t
+    log(f"== 12 the per-size engine, runners and the timing engine on the card, "
+        f"in {tm['seconds']['phase_s']:.2f} s")
+    log("   (a) timing_replay == replay_ref, bit for bit: "
+        + json.dumps(tm["replay_checks"]) + "; timed: " + json.dumps(tm["replay_timed"]))
+    log("   (b) calibration, CPU lane == CUDA lane: " + json.dumps(tm["calibration"]))
+    log("   (c) fidelity quick contract, CPU lane == CUDA lane; regime counts "
+        + json.dumps(tm["quick_regimes"]))
+    for reg, row in tm["fidelity"]["regimes"].items():
+        log(f"   (d) fidelity regime {reg}: " + json.dumps(row))
+    for name, row in tm["fidelity"]["rows"].items():
+        log(f"   (d) fidelity {name}: " + json.dumps(row))
+    log(f"   (d) divergence concentrated outside the balanced regime: "
+        f"{tm['fidelity']['concentrated']}")
+    for name, rows in tm["fig1"].items():
+        log(f"   (e) fig1 {name}, CPU lane == CUDA lane: " + json.dumps(rows))
+    log("   (e) fig1 bfs summary: " + json.dumps(tm["fig1_bfs_summary"]))
+    log("   (e) fig1 at full size: " + json.dumps(tm["fig1_full"]))
+    log("   (f) pool_factory == device sweep: " + json.dumps(tm["per_size"]))
+    log("   (g) timing lane at full size: " + json.dumps(tm["timing_full"]))
+    log(f"   launches: timing_replay {tm['launches_timing_replay']} (fidelity), "
+        f"victim_partition {tm['launches_fidelity']} (fidelity), "
+        f"{tm['launches_fig1']} (fig1); seconds " + json.dumps(tm["seconds"]))
 
     promote = mig["promote"]
     kernels = [{
@@ -3005,6 +3786,9 @@ def main() -> int:
         "launches_fleets": ff["fleet_launches"],
         "launches_fleet_full": sum(ff["fleet_full"][p]["victim_partition_launches"]
                                    for p in ("static", "fleet_tuna")),
+        "launches_fig1": tm["launches_fig1"],
+        "launches_fig1_full": tm["fig1_full"]["victim_partition_launches"],
+        "launches_fidelity": tm["launches_fidelity"],
     }, {
         "name": "migrate_pages",
         "route": "cuda",
@@ -3061,6 +3845,22 @@ def main() -> int:
         "max_abs_err": max(wkv6_err, wk["max_abs_err"]),
         **{k: wk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "device_ms", "batch_ms")},
+    }, {
+        "name": "timing_replay",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/timing_replay.cu",
+        # no TPU counterpart: the JAX package's numpy replay loop
+        "replaces": "src/repro/timing/engine.py:218",
+        "tpu_kernel": None,
+        "launches": tm["launches_timing_replay"],
+        "launches_full_size": tm["timing_full"]["launches"],
+        "max_abs_err": tm["replay_checks"]["max_abs_err"],
+        **{k: tm["replay_timed"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "events", "replays")},
+        "library_ms": None,
+        "full_size_ms": tm["timing_full"]["replay_s"] * 1e3,
+        "full_size_events": tm["timing_full"]["events"],
+        "full_size_bound_ms": tm["timing_full"]["bound_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

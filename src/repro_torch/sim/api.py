@@ -5,9 +5,11 @@ Counterpart of :mod:`repro.sim.api` for the batched sweep backends:
 * :class:`Scenario`: what to run (a trace, a workload name of
   :data:`repro_torch.sim.workloads.WORKLOADS`, or a zero-argument callable
   returning a trace; the hardware profile and fast-tier capacity; pool
-  overrides; ``fast_only_at_full`` for the micro-benchmark's NP_slow = 0
-  baseline at full size; ``faults``, a :class:`~repro_torch.sim.faults.
-  FaultSpec` that turns on the seeded fault model);
+  overrides, ``pool_factory`` among them; ``fast_only_at_full`` for the
+  micro-benchmark's NP_slow = 0 baseline at full size; ``faults``, a
+  :class:`~repro_torch.sim.faults.FaultSpec` that turns on the seeded
+  fault model; or a custom ``runner`` in place of the simulator, such as
+  the timing lane's :func:`repro_torch.timing.timing_runner`);
 * :class:`repro_torch.fleet.FleetScenario`: N tenants sharing one
   fast-memory budget, each tenant one slice of the device step, with a
   fleet-level Tuna arbiter (``backend="fleet"``, one :class:`RunRecord`
@@ -19,8 +21,9 @@ Counterpart of :mod:`repro.sim.api` for the batched sweep backends:
 * :func:`run`: executes an experiment on ``device`` (``None`` = the card)
   and returns a :class:`RunSet`.
 
-The planner executes every spec as a batched sweep on the device step
-(:mod:`repro_torch.sim.torch_engine`):
+The planner executes every spec of a plain scenario as a batched sweep on
+the device step (:mod:`repro_torch.sim.torch_engine`), first touch
+included; a custom pool or runner takes the scenario off it:
 
 ==========================  ==================================================
 spec shape                  backend
@@ -32,20 +35,25 @@ any tuner in the loop       one :func:`~repro_torch.sim.sweep._sweep_tuned`
                             pass per (kind, hot_thr, params) group; the
                             group's untuned specs ride along as plain slices
                             (``backend="torch_tuned_sweep"``)
+``Scenario.pool_factory``   one per-size :func:`repro_torch.sim.engine.
+                            _simulate` per (spec, size) on the host, with
+                            ``kswapd_batch`` bound into the factory
+                            (``backend="simulate"``)
+``Scenario.runner``         ``runner(scenario, fm_frac, policy_spec, db)``
+                            per (spec, size) (``backend="custom"``)
 ==========================  ==================================================
 
-Results are bit-exact against the JAX package's ``run`` on its numpy sweep
-(``backend="sweep"`` / ``"tuned_sweep"`` / ``"fleet"``), fault events
-(``RunRecord.fault_events``) and the fleet arbiter's log
-(``RunRecord.arbiter_log``) included. What the JAX package's planner also
-does waits for a later slice of the port, and raises
-:class:`NotImplementedError` here: custom runners, custom pool factories
-(the per-size engine) and non-batchable policy kinds. RunSet JSON, the
-result cache and process fan-out wait too.
+Results are bit-exact against the JAX package's ``run`` (its numpy sweep,
+``backend="sweep"`` / ``"tuned_sweep"`` / ``"fleet"``, and its per-size
+engine, ``"simulate"``, which also runs its ``first_touch`` specs), fault
+events (``RunRecord.fault_events``) and the fleet arbiter's log
+(``RunRecord.arbiter_log``) included. RunSet JSON, the result cache and
+process fan-out are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 import json
 from dataclasses import dataclass, field
@@ -58,6 +66,7 @@ from repro_torch.core.tuner import TunaTuner, TunerConfig
 from repro_torch.core.watermark import WatermarkController
 from repro_torch.device import resolve_device
 from repro_torch.sim.costmodel import HardwareProfile, OPTANE_LIKE
+from repro_torch.sim.engine import _simulate
 from repro_torch.sim.faults import FaultInjector, FaultSpec
 from repro_torch.sim.sweep import SimResult, TunedSlice, _sweep_fm_fracs, _sweep_tuned
 from repro_torch.tiering.policy import resolve_policy
@@ -71,12 +80,6 @@ __all__ = [
     "TunerSpec",
     "run",
 ]
-
-_LATER = (
-    "a later slice of the port (the per-size engine, custom runners and "
-    "timing in run)"
-)
-
 
 @dataclass(frozen=True)
 class TunerSpec:
@@ -132,7 +135,7 @@ class PolicySpec:
     """One page-management variant of an experiment.
 
     ``kind`` names a class of :data:`repro_torch.tiering.policy.POLICIES`
-    (``"tpp"``, ``"admission"``, ``"thrash_guard"``); ``params`` is passed
+    (``"tpp"``, ``"admission"``, ``"thrash_guard"``, ``"first_touch"``); ``params`` is passed
     to its constructor. ``tuner`` puts a Tuna tuner in the loop.
     ``fm_frac`` overrides the experiment's size vector for this spec.
     Labels are the JAX package's.
@@ -195,9 +198,12 @@ class Scenario:
     ``trace.fast_only()``, the micro-benchmark's NP_slow = 0 baseline the
     database build needs. ``faults`` turns on the seeded fault model (one
     :class:`~repro_torch.sim.faults.FaultInjector` per constructed policy,
-    identical schedules). ``runner`` and ``pool_factory`` exist so that a
-    scenario of the JAX package's shape is refused by name: they wait for
-    a later slice.
+    identical schedules). ``pool_factory`` builds the host pool of the
+    per-size engine for every (spec, size) (``backend="simulate"``; the
+    JAX package's ``ReferencePagePool`` is the golden model).
+    ``runner(scenario, fm_frac, policy_spec, db) -> dict`` swaps the whole
+    execution engine (``backend="custom"``); bind its knobs, its device
+    included, with :func:`functools.partial`.
     """
 
     trace: Trace | str | Callable[[], Trace] | None = None
@@ -245,8 +251,9 @@ class RunRecord:
     scenario: str
     policy: str
     fm_frac: float
-    backend: str  # "torch_sweep" | "torch_tuned_sweep" | "fleet"
-    result: SimResult
+    backend: str  # "torch_sweep" | "torch_tuned_sweep" | "fleet" |
+    # "simulate" | "custom"
+    result: SimResult | dict
     decisions: list | None = None  # TunerDecision list (tuned specs)
     watermark_log: list | None = None  # WatermarkEvent list (tuned specs)
     fault_events: list | None = None  # injected-fault log (fault runs)
@@ -297,8 +304,29 @@ class RunSet:
     def total_times(
         self, scenario: str | None = None, policy: str | None = None
     ) -> np.ndarray:
-        """Total execution time of every matching run, in ``runs`` order."""
-        return np.array([r.result.total_time for r in self.select(scenario, policy)])
+        """Total execution time of every matching run, in ``runs`` order.
+
+        Simulator runs give ``SimResult.total_time``. Custom-runner payloads
+        take part by the **interval-times protocol**: a payload ``dict``
+        with ``"total_time"`` (preferred) or ``"interval_times"`` (summed).
+        A payload with neither raises.
+        """
+        out = []
+        for r in self.select(scenario, policy):
+            res = r.result
+            if isinstance(res, SimResult):
+                out.append(res.total_time)
+            elif isinstance(res, dict) and "total_time" in res:
+                out.append(float(res["total_time"]))
+            elif isinstance(res, dict) and "interval_times" in res:
+                out.append(float(np.sum(res["interval_times"])))
+            else:
+                raise TypeError(
+                    f"total_times() needs simulator results or payloads "
+                    f"with 'total_time'/'interval_times'; run "
+                    f"{r.scenario!r}/{r.policy!r} has backend={r.backend!r}"
+                )
+        return np.array(out)
 
 
 def _resolve_trace(scenario: Scenario) -> Trace:
@@ -332,7 +360,17 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
             scenario, fm_fracs, policies, db, collect_configs, device=device
         )
     sname = scenario.resolved_name
+    if scenario.runner is not None:
+        records = [
+            RunRecord(sname, spec.name, float(f), "custom",
+                      scenario.runner(scenario, float(f), spec, db))
+            for spec in policies
+            for f in _spec_fracs(spec, fm_fracs)
+        ]
+        return records, 0
     trace = _resolve_trace(scenario)
+    if scenario.pool_factory is not None:
+        return _run_per_size(scenario, trace, fm_fracs, policies, db), 0
     cap = int(scenario.hw_capacity_pages or trace.rss_pages)
     common = dict(
         hw=scenario.hw,
@@ -407,7 +445,10 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
             for idxs, tr in parts:
                 flog = [] if inj is not None else None
                 res = _sweep_fm_fracs(
-                    tr, farr[idxs], collect_configs=collect_configs,
+                    tr, farr[idxs],
+                    # the JAX package runs first touch on its per-size
+                    # engine, which always collects the ConfigVectors
+                    collect_configs=collect_configs or not spec.policy_cls.migrates,
                     policy=policy, faults=inj, fault_log=flog, **common,
                 )
                 for j, fi in enumerate(idxs):
@@ -435,7 +476,44 @@ def _run_scenario(scenario, fm_fracs, policies, db, collect_configs, device):
     return records, chunked
 
 
-def _refuse_later_slices(scenarios) -> None:
+def _run_per_size(scenario, trace, fm_fracs, policies, db) -> list:
+    """Every (policy, size) cell of a ``pool_factory`` scenario through the
+    per-size engine on the host, in (policy-major, size) order."""
+    sname = scenario.resolved_name
+    pool_factory = scenario.pool_factory
+    if scenario.kswapd_batch is not None:
+        pool_factory = functools.partial(
+            pool_factory, kswapd_batch=scenario.kswapd_batch
+        )
+    records = []
+    for spec in policies:
+        for f in _spec_fracs(spec, fm_fracs):
+            f = float(f)
+            tuner = spec.tuner.build(db) if spec.tuner is not None else None
+            inj = FaultInjector(scenario.faults) if scenario.faults is not None else None
+            full = scenario.fast_only_at_full and f >= 1.0 - 1e-9
+            res = _simulate(
+                trace.fast_only() if full else trace,
+                fm_frac=f,
+                policy=spec.build_policy(),
+                hw=scenario.hw,
+                hw_capacity_pages=scenario.hw_capacity_pages,
+                tuner=tuner,
+                tune_every=spec.tuner.tune_every if spec.tuner is not None else None,
+                seed=scenario.seed,
+                pool_factory=pool_factory,
+                faults=inj,
+            )
+            records.append(RunRecord(
+                sname, spec.name, f, "simulate", res,
+                decisions=None if tuner is None else list(tuner.decisions),
+                watermark_log=None if tuner is None else list(tuner.controller.log),
+                fault_events=None if inj is None else inj.all_events(),
+            ))
+    return records
+
+
+def _validate_scenarios(scenarios) -> None:
     for sc in scenarios:
         if getattr(sc, "is_fleet", False):
             continue  # tenants carry traces; the fleet runner checks them
@@ -445,17 +523,8 @@ def _refuse_later_slices(scenarios) -> None:
                 f"scenario {name!r}: faults must be a FaultSpec, got "
                 f"{type(sc.faults).__name__}"
             )
-        if sc.runner is not None:
-            raise NotImplementedError(
-                f"scenario {name!r}: custom runners wait for {_LATER}"
-            )
-        if sc.pool_factory is not None:
-            raise NotImplementedError(
-                f"scenario {name!r}: custom pool factories (the per-size "
-                f"engine) wait for {_LATER}"
-            )
-        if sc.trace is None:
-            raise ValueError(f"scenario {name!r} has no trace")
+        if sc.trace is None and sc.runner is None:
+            raise ValueError(f"scenario {name!r} has neither trace nor runner")
 
 
 def run(experiment: Experiment, db=None, device=None) -> RunSet:
@@ -477,7 +546,7 @@ def run(experiment: Experiment, db=None, device=None) -> RunSet:
     policies = tuple(experiment.policies)
     if not policies:
         raise ValueError("Experiment needs at least one policy spec")
-    _refuse_later_slices(scenarios)
+    _validate_scenarios(scenarios)
     names = [sc.resolved_name for sc in scenarios]
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate scenario names: {names}")

@@ -21,10 +21,12 @@ outages and watermark-actuation lag.
 
 The injector keeps, per pool, the interval cursor and the event log on the
 host. The promotion filter's per-page retry state (failure streaks and
-backoff deadlines) lives on the device, in the sweep step
-(:func:`repro_torch.sim.torch_engine._filter_promotions`), which draws the
-per-page failures from :meth:`FaultInjector.promotion_draws` and books
-their outcome through :meth:`FaultInjector.record_promotion_faults`.
+backoff deadlines) has two homes, with one semantics: on the device, in
+the sweep step (:func:`repro_torch.sim.torch_engine._filter_promotions`),
+and on the host, in the pool's fault state, for the per-size engine
+(:meth:`FaultInjector.filter_promotions`). Both draw the per-page failures
+from :meth:`FaultInjector.promotion_draws` and book their outcome through
+:meth:`FaultInjector.record_promotion_faults`.
 """
 
 from __future__ import annotations
@@ -121,13 +123,16 @@ class FaultSpec:
 
 
 class _PoolFaultState:
-    """Per-pool fault trajectory on the host: interval cursor + event log."""
+    """Per-pool fault trajectory on the host: interval cursor, event log
+    and, once the host promotion filter runs, the per-page retry state."""
 
-    __slots__ = ("t", "events")
+    __slots__ = ("t", "events", "fail_count", "blocked_until")
 
     def __init__(self) -> None:
         self.t = -1  # interval cursor, ticked by begin_interval
         self.events: list[dict] = []
+        self.fail_count = None  # consecutive failed attempts per page
+        self.blocked_until = None  # backoff deadline per page
 
 
 @dataclass
@@ -145,6 +150,8 @@ class FaultInjector:
     * :meth:`promotion_draws` / :meth:`record_promotion_faults`: the
       per-(page, interval) failure draws of the device filter, and the
       booking of its per-slice outcome;
+    * :meth:`filter_promotions`: the same filter on the host, for the
+      per-size engine's policy step;
     * :meth:`telemetry`: perturbs (or drops) a tuning window's
       ConfigVector and time per access;
     * :meth:`db_outage`: whether the PerfDB is unreachable at a tuner step;
@@ -216,6 +223,48 @@ class FaultInjector:
         t_mix = np.uint64((int(t) * 0x9E3779B97F4A7C15) & _MASK)
         keys = np.asarray(pages).astype(np.uint64) * _PAGE_STRIDE + t_mix
         return _u01(keys, self.spec.seed, _SALT_PROMOTE)
+
+    def filter_promotions(self, pool, cand: np.ndarray):
+        """Inject transient promotion failures into admitted candidates.
+
+        Returns ``(kept, n_failed)``: ``kept`` is a subsequence of ``cand``
+        (the hottest-first order the scheduler requires) and ``n_failed``
+        counts this interval's failed attempts (transient + exhausted), to
+        be added to the outcome's ``pm_fail``. Pages in backoff are
+        withheld without a new attempt. A page's ``max_retries + 1``-th
+        consecutive failure abandons the migration (credited to
+        ``pool.stats.pgpromote_fail``; its retry state resets); a retrying
+        page backs off ``backoff_base * 2**(streak - 1)`` intervals; a
+        success clears the streak.
+        """
+        sp = self.spec
+        if sp.promote_fail_rate <= 0.0 or cand.size == 0:
+            return cand, 0
+        st = self._state(pool)
+        if st.fail_count is None:
+            st.fail_count = np.zeros(int(pool.num_pages), dtype=np.int64)
+            st.blocked_until = np.zeros(int(pool.num_pages), dtype=np.int64)
+        t = max(st.t, 0)
+        in_backoff = st.blocked_until[cand] > t
+        attempt = cand[~in_backoff]
+        fail = self.promotion_draws(attempt, t) < sp.promote_fail_rate
+        failed = attempt[fail]
+        st.fail_count[failed] += 1
+        exhausted = st.fail_count[failed] > sp.max_retries
+        exh_pages = failed[exhausted]
+        retrying = failed[~exhausted]
+        st.fail_count[exh_pages] = 0
+        st.blocked_until[exh_pages] = 0
+        st.blocked_until[retrying] = t + sp.backoff_base * (
+            2 ** (st.fail_count[retrying] - 1)
+        )
+        st.fail_count[attempt[~fail]] = 0  # a success clears the streak
+        self.record_promotion_faults(
+            pool, int(in_backoff.sum()), exh_pages.size, retrying.size
+        )
+        keep = ~in_backoff
+        keep[np.flatnonzero(keep)[fail]] = False
+        return cand[keep], int(failed.size)
 
     def record_promotion_faults(
         self, pool, n_withheld: int, n_exhausted: int, n_transient: int

@@ -8,7 +8,10 @@ policy's candidate filter (admission, or the thrash guard's ping-pong
 backoff with its per-size state on the device), the TPP promote/reclaim
 schedule of every size, per-size victim selection over
 the shared demotion ranking (the ``victim_partition`` CUDA kernel), and
-the promote/demote commit. The tier state of all sizes is one stacked
+the promote/demote commit. The first-touch kind (``policy.migrates`` is
+False) stops after allocation and classification: no candidate pass,
+schedule, victim selection or commit, as the JAX package's
+``FirstTouchPolicy.step`` returns an empty outcome with reclaim off. The tier state of all sizes is one stacked
 ``[n_sizes, rss]`` int8 tensor on the device; the host keeps only what the
 paper's control plane needs per interval: the integer counters for the
 cost model, watermarks, pool stats, profilers and tuners.
@@ -88,7 +91,7 @@ def _require_torch_runnable(trace, policy, faults) -> None:
     if not getattr(policy, "batchable", False):
         raise ValueError(
             f"policy kind '{policy.kind}' is not batchable; the torch sweep "
-            "replicates TPP-contract policies only"
+            "replicates the registered kinds only"
         )
     for i, ia in enumerate(trace):
         if ia.pages.size and np.unique(ia.pages).size != ia.pages.size:
@@ -189,7 +192,9 @@ def _sweep_run_torch(
     hot_thr = policy.hot_thr
     admit_margin = getattr(policy, "admit_margin", None)
     reuse_window = getattr(policy, "reuse_window", None)
-    promote_batch = policy.promote_batch
+    promote_batch = getattr(policy, "promote_batch", None)
+    # the first-touch kind: allocation, classification and cost only
+    migrates = getattr(policy, "migrates", True)
     fleet = page_owner is not None
     caps = (
         np.asarray(slice_caps, dtype=np.int64)
@@ -240,7 +245,8 @@ def _sweep_run_torch(
         cooldown = torch.zeros(n_sizes, dtype=torch.int64, device=dev)
     # the promotion filter is the policy's (as in the JAX package)
     retry = (
-        policy.fault_injector is not None
+        migrates
+        and policy.fault_injector is not None
         and policy.fault_injector.spec.promote_fail_rate > 0.0
     )
     if retry:
@@ -325,121 +331,129 @@ def _sweep_run_torch(
             [_as_device(counts_mem, dev), rep_d, warm_d, rep_d * warm_d], dim=1
         ).to(torch.float64)
         sums_d = (tier[:, pages_d] == _FAST).to(torch.float64) @ cols
-        # --- effective heat: the interval-frozen demotion key and the
-        # post-fold heat; the multiply and the add stay separate operations
-        eff_all = heat * _DECAY
-        eff_all.index_add_(0, pages_d, touches_d.to(torch.float64))
-        # --- hot candidates, hottest first, access order within ties
-        hot_pos = torch.nonzero(touches_d >= hot_thr).squeeze(1)
-        hot_ids = pages_d[
-            hot_pos[torch.argsort(-touches_d[hot_pos], stable=True)]
-        ]
-        eff_h = eff_all[hot_ids]
-        slow_cand = tier[:, hot_ids] == _SLOW
-        if admit_margin is not None:
-            # AdmissionTPPPolicy: trace-pure, size-independent
-            admitted = slow_cand & (eff_h >= admit_margin * hot_thr)[None, :]
-        elif reuse_window is not None:
-            # ThrashGuardPolicy: a candidate promoted within the last
-            # reuse_window steps is slow again, so it ping-ponged. Past
-            # churn_frac of the candidates the size backs off, and while
-            # it backs off its ping-pong candidates are suppressed.
-            recent = slow_cand & (last_promoted[:, hot_ids] >= i - reuse_window)
-            n_ping = recent.sum(dim=1)
-            churn = n_ping.to(torch.float64) > policy.churn_frac * slow_cand.sum(
-                dim=1
-            ).to(torch.float64)
-            cooldown = torch.where(churn, policy.backoff_intervals, cooldown)
-            suppress = (cooldown > 0) & (n_ping > 0)
-            admitted = slow_cand & ~(recent & suppress[:, None])
-        else:
-            admitted = slow_cand
-        rejected_d = slow_cand.sum(dim=1) - admitted.sum(dim=1)
-        counts_d = [rejected_d]
-        if retry:
-            # injected transient promotion failures, after admission and
-            # before the promote_batch cut; the draw of a page depends only
-            # on (page, interval), hashed on the host over the hot pages
-            draws_d = _as_device(
-                faults.promotion_draws(hot_ids.cpu().numpy(), i), dev
-            )
-            admitted, fault_counts_d = _filter_promotions(
-                admitted, hot_ids, draws_d, fail_count, blocked_until, i,
-                faults.spec,
-            )
-            counts_d.extend(fault_counts_d)
-        if promote_batch is not None:
-            admitted = admitted & (torch.cumsum(admitted, dim=1) <= promote_batch)
-        n_cand_d = admitted.sum(dim=1)
-        # --- the promote/reclaim schedule of every size, on the host
-        n_cand, rejected, *fault_counts = (
-            torch.stack([n_cand_d, *counts_d]).cpu().numpy()
-        )
-        injected = np.zeros(n_sizes, dtype=np.int64)
-        if retry:
-            withheld, exhausted, transient, injected = fault_counts
-            for s, pool in enumerate(pools):
-                faults.record_promotion_faults(
-                    pool, withheld[s], exhausted[s], transient[s]
-                )
-        pm_pr, pm_de, pm_fail, direct_total, events, d_demand = (
-            _bulk_schedule_batch(
-                free_a, fastc_a, minf_a, lowf_a, highf_a, kswapd_a, n_cand
-            )
-        )
-        # --- winners: the first pm_pr admitted candidates per size
-        pm_pr_d = _as_device(pm_pr, dev)
-        win_mask = admitted & (torch.cumsum(admitted, dim=1) <= pm_pr_d[:, None])
-        interf = np.zeros(n_sizes, dtype=bool)
-        if d_demand.any():
-            # --- victims in the shared ranking (the CUDA kernel) and the
-            # provisional demotion commit, exact for non-interfering sizes
-            d_demand_d = _as_device(d_demand, dev)
-            order, ranked, vic = _select_victims(tier, eff_all, d_demand_d)
-            vcount = vic.sum(dim=1)
-            posr = torch.arange(num_pages, device=dev)
-            last_pos = torch.where(vic, posr, -1).amax(dim=1)
-            last_eff = torch.where(
-                last_pos >= 0, eff_all[order[last_pos.clamp(min=0)]], -torch.inf
-            )
-            if hot_ids.numel():
-                win_eff_min = torch.where(win_mask, eff_h, torch.inf).amin(dim=1)
+        if migrates:
+            # --- effective heat: the interval-frozen demotion key and the
+            # post-fold heat; the multiply and the add stay separate operations
+            eff_all = heat * _DECAY
+            eff_all.index_add_(0, pages_d, touches_d.to(torch.float64))
+            # --- hot candidates, hottest first, access order within ties
+            hot_pos = torch.nonzero(touches_d >= hot_thr).squeeze(1)
+            hot_ids = pages_d[
+                hot_pos[torch.argsort(-touches_d[hot_pos], stable=True)]
+            ]
+            eff_h = eff_all[hot_ids]
+            slow_cand = tier[:, hot_ids] == _SLOW
+            if admit_margin is not None:
+                # AdmissionTPPPolicy: trace-pure, size-independent
+                admitted = slow_cand & (eff_h >= admit_margin * hot_thr)[None, :]
+            elif reuse_window is not None:
+                # ThrashGuardPolicy: a candidate promoted within the last
+                # reuse_window steps is slow again, so it ping-ponged. Past
+                # churn_frac of the candidates the size backs off, and while
+                # it backs off its ping-pong candidates are suppressed.
+                recent = slow_cand & (last_promoted[:, hot_ids] >= i - reuse_window)
+                n_ping = recent.sum(dim=1)
+                churn = n_ping.to(torch.float64) > policy.churn_frac * slow_cand.sum(
+                    dim=1
+                ).to(torch.float64)
+                cooldown = torch.where(churn, policy.backoff_intervals, cooldown)
+                suppress = (cooldown > 0) & (n_ping > 0)
+                admitted = slow_cand & ~(recent & suppress[:, None])
             else:
-                win_eff_min = torch.full_like(last_eff, torch.inf)
-            # interference: demand reaching into same-step promotions, the
-            # bulk step's exact precondition (ties count as interference)
-            interf = (
-                (d_demand_d > 0)
-                & ((vcount < d_demand_d) | ((pm_pr_d > 0) & (win_eff_min <= last_eff)))
-            ).cpu().numpy()
-            tier[:, order] = torch.where(vic, slow8, ranked)
-        win_rows, win_cols = torch.nonzero(win_mask, as_tuple=True)
-        tier[win_rows, hot_ids[win_cols]] = _FAST
-        if reuse_window is not None:
-            # the guard's post-step hook: stamp this step's promotions
-            # (same-step demotions of winners included), count down
-            last_promoted[win_rows, hot_ids[win_cols]] = i
-            cooldown = torch.clamp(cooldown - 1, min=0)
-        # --- thrash regime: resolve interfering sizes' victim identities on
-        # the host (before the counter commit: the resolver replays the
-        # pre-step schedule) and patch their tier rows
-        for s in np.flatnonzero(interf):
-            victims_d = order[vic[s]]  # walk order
-            winners_d = hot_ids[win_mask[s]]  # promotion order
-            if victims_d.numel() + winners_d.numel() < d_demand[s]:
-                raise RuntimeError(
-                    "torch sweep: victim supply mismatch (corrupted tier state)"
+                admitted = slow_cand
+            rejected_d = slow_cand.sum(dim=1) - admitted.sum(dim=1)
+            counts_d = [rejected_d]
+            if retry:
+                # injected transient promotion failures, after admission and
+                # before the promote_batch cut; the draw of a page depends only
+                # on (page, interval), hashed on the host over the hot pages
+                draws_d = _as_device(
+                    faults.promotion_draws(hot_ids.cpu().numpy(), i), dev
                 )
-            base_n, cand_taken = _resolve_step_victims(
-                eff_all[victims_d].cpu().numpy(),
-                victims_d.cpu().numpy(),
-                eff_all[winners_d].cpu().numpy(),
-                winners_d.cpu().numpy(),
-                pools[s]._schedule_events(int(n_cand[s])),
+                admitted, fault_counts_d = _filter_promotions(
+                    admitted, hot_ids, draws_d, fail_count, blocked_until, i,
+                    faults.spec,
+                )
+                counts_d.extend(fault_counts_d)
+            if promote_batch is not None:
+                admitted = admitted & (torch.cumsum(admitted, dim=1) <= promote_batch)
+            n_cand_d = admitted.sum(dim=1)
+            # --- the promote/reclaim schedule of every size, on the host
+            n_cand, rejected, *fault_counts = (
+                torch.stack([n_cand_d, *counts_d]).cpu().numpy()
             )
-            tier[int(s), victims_d[base_n:]] = _FAST
-            tier[int(s), winners_d[_as_device(cand_taken, dev)]] = _SLOW
-        heat = eff_all
+            injected = np.zeros(n_sizes, dtype=np.int64)
+            if retry:
+                withheld, exhausted, transient, injected = fault_counts
+                for s, pool in enumerate(pools):
+                    faults.record_promotion_faults(
+                        pool, withheld[s], exhausted[s], transient[s]
+                    )
+            pm_pr, pm_de, pm_fail, direct_total, events, d_demand = (
+                _bulk_schedule_batch(
+                    free_a, fastc_a, minf_a, lowf_a, highf_a, kswapd_a, n_cand
+                )
+            )
+            # --- winners: the first pm_pr admitted candidates per size
+            pm_pr_d = _as_device(pm_pr, dev)
+            win_mask = admitted & (torch.cumsum(admitted, dim=1) <= pm_pr_d[:, None])
+            interf = np.zeros(n_sizes, dtype=bool)
+            if d_demand.any():
+                # --- victims in the shared ranking (the CUDA kernel) and the
+                # provisional demotion commit, exact for non-interfering sizes
+                d_demand_d = _as_device(d_demand, dev)
+                order, ranked, vic = _select_victims(tier, eff_all, d_demand_d)
+                vcount = vic.sum(dim=1)
+                posr = torch.arange(num_pages, device=dev)
+                last_pos = torch.where(vic, posr, -1).amax(dim=1)
+                last_eff = torch.where(
+                    last_pos >= 0, eff_all[order[last_pos.clamp(min=0)]], -torch.inf
+                )
+                if hot_ids.numel():
+                    win_eff_min = torch.where(win_mask, eff_h, torch.inf).amin(dim=1)
+                else:
+                    win_eff_min = torch.full_like(last_eff, torch.inf)
+                # interference: demand reaching into same-step promotions, the
+                # bulk step's exact precondition (ties count as interference)
+                interf = (
+                    (d_demand_d > 0)
+                    & ((vcount < d_demand_d) | ((pm_pr_d > 0) & (win_eff_min <= last_eff)))
+                ).cpu().numpy()
+                tier[:, order] = torch.where(vic, slow8, ranked)
+            win_rows, win_cols = torch.nonzero(win_mask, as_tuple=True)
+            tier[win_rows, hot_ids[win_cols]] = _FAST
+            if reuse_window is not None:
+                # the guard's post-step hook: stamp this step's promotions
+                # (same-step demotions of winners included), count down
+                last_promoted[win_rows, hot_ids[win_cols]] = i
+                cooldown = torch.clamp(cooldown - 1, min=0)
+            # --- thrash regime: resolve interfering sizes' victim identities on
+            # the host (before the counter commit: the resolver replays the
+            # pre-step schedule) and patch their tier rows
+            for s in np.flatnonzero(interf):
+                victims_d = order[vic[s]]  # walk order
+                winners_d = hot_ids[win_mask[s]]  # promotion order
+                if victims_d.numel() + winners_d.numel() < d_demand[s]:
+                    raise RuntimeError(
+                        "torch sweep: victim supply mismatch (corrupted tier state)"
+                    )
+                base_n, cand_taken = _resolve_step_victims(
+                    eff_all[victims_d].cpu().numpy(),
+                    victims_d.cpu().numpy(),
+                    eff_all[winners_d].cpu().numpy(),
+                    winners_d.cpu().numpy(),
+                    pools[s]._schedule_events(int(n_cand[s])),
+                )
+                tier[int(s), victims_d[base_n:]] = _FAST
+                tier[int(s), winners_d[_as_device(cand_taken, dev)]] = _SLOW
+            heat = eff_all
+        else:
+            # first touch: no candidate pass, schedule, victims or commit
+            # (the policy never migrates and reclaim is off)
+            pm_pr = pm_de = pm_fail = direct_total = events = d_demand = (
+                np.zeros(n_sizes, dtype=np.int64)
+            )
+            rejected = injected = pm_pr
         # --- counters to the host pools, then per-size telemetry and cost
         # (host, the JAX package's arithmetic)
         for s, pool in enumerate(pools):

@@ -1,15 +1,20 @@
-"""Tiered page pool of the port: allocation state, heat and watermarks.
+"""Tiered page pool of the port: allocation state, heat, watermarks and the
+host migration path.
 
 Counterpart of :mod:`repro.tiering.page_pool`, in two shapes:
 
 * the **standalone pool** (:class:`TieredPagePool` with the JAX package's
   constructor): tiers, the swap-remove fast-tier index (:class:`_FastSet`),
-  lazily decayed heat (:class:`LazyHeat`), first-touch allocation and the
-  interval fold, copied line for line. The tiered KV cache
-  (:mod:`repro_torch.serving.kv_cache`) runs on it. It stays numpy: its
-  callers rank victims with an unstable ``np.argsort`` whose ties fall in
-  the order the fast index's swap-remove leaves, so the index and the sort
-  are the same code as in the JAX package.
+  lazily decayed heat (:class:`LazyHeat`), first-touch allocation, the
+  interval fold and the migration path the per-size engine
+  (:mod:`repro_torch.sim.engine`) and the timing lane drive: promotion,
+  watermark reclaim over the per-interval victim queue
+  (:class:`_DemoteQueue`) and the bulk policy step
+  (:meth:`TieredPagePool._try_bulk_step`), copied line for line. The tiered
+  KV cache (:mod:`repro_torch.serving.kv_cache`) runs on it too. It stays
+  numpy on the host: its victim order hangs on unstable ``np.argsort`` /
+  ``np.partition`` ties in the order the fast index's swap-remove leaves,
+  so the index and the sorts are the same code as in the JAX package.
 * the **slice pool** of the device sweep (:meth:`TieredPagePool.for_slice`).
   The tier state of every swept fast-memory size lives on the device in
   :mod:`repro_torch.sim.torch_engine`, as one stacked
@@ -18,11 +23,15 @@ Counterpart of :mod:`repro.tiering.page_pool`, in two shapes:
   occupancy counters and the cumulative stats the profilers and tuners
   read. Its host ``tier`` row holds the placement before the run
   (:meth:`TieredPagePool.place`) and the device state imported after it.
+  It has no heat and no migration path of its own.
 
 The TPP schedule recurrence (:func:`_bulk_schedule`,
 :func:`_bulk_schedule_batch`) and the thrash-regime victim resolver
-(:func:`_resolve_step_victims`) are copied unchanged: the engine runs them
-on the host over integers pulled from the device.
+(:func:`_resolve_step_victims`) are copied unchanged: the bulk step runs
+them on the host pool, and the device step over integers pulled from the
+device. The JAX package's interval-wide ranking of its numpy sweep
+(``GlobalDemoteRank``, ``LazyGrankBox``) has no counterpart: the device
+step ranks on the card.
 """
 
 from __future__ import annotations
@@ -141,10 +150,10 @@ class LazyHeat:
         self.stamp[:] = self.t + 1
         self.t += 1
 
-    def current(self, pages: np.ndarray) -> np.ndarray:
-        """Heat as of the last completed interval. Reads without the
-        write-back when staleness is homogeneous (the every-interval-read
-        steady state), else refreshes in place."""
+    def _peek(self, pages: np.ndarray) -> np.ndarray:
+        """Refreshed values without the write-back scatters when staleness
+        is homogeneous (the every-interval-read steady state); falls back
+        to :meth:`_refresh` so heterogeneous catch-up work is never redone."""
         vals = self.value[pages]
         if pages.size == 0:
             return vals
@@ -155,6 +164,131 @@ class LazyHeat:
         if kmax == 1 and int(k.min()) == 1:
             return vals * self.decay
         return self._refresh(pages)
+
+    def current(self, pages: np.ndarray) -> np.ndarray:
+        """Heat as of the last completed interval."""
+        return self._peek(pages)
+
+    def lookahead(self, pages: np.ndarray) -> np.ndarray:
+        """Heat decayed through the *current* interval (the demotion-ranking
+        term)."""
+        return self._peek(pages) * self.decay
+
+    def dense(self) -> np.ndarray:
+        """Materialize the full heat array (O(num_pages); telemetry only)."""
+        self._refresh(np.arange(self.value.size))
+        return self.value.copy()
+
+
+class _DemoteQueue:
+    """Per-interval victim queue for :meth:`TieredPagePool.demote_coldest`.
+
+    Reclaim is invoked many times per interval (once per promotion chunk in
+    the policy loop), but the ranking inputs (lazy heat and the interval's
+    touch counters) are constant between invocations. So the fast tier is
+    ranked **once** per interval in lexicographic (effective heat, page id)
+    order, and successive demotions consume the queue front. Pages promoted
+    mid-interval enter as *pending* entries and are merged during selection.
+
+    Invariant: every queue entry at or after ``pos`` is still in the fast
+    tier. Demotions only ever consume the queue front, ``promote`` cannot
+    touch fast pages, and any other tier transition (``place``,
+    first-touch allocation) invalidates the whole queue, so ``pop`` is
+    pure front slicing, with no validity rescans.
+    """
+
+    def __init__(self, ids: np.ndarray, eff: np.ndarray, want: int) -> None:
+        # unsorted remainder: every entry ranks strictly after the sorted
+        # block, so sorting is paid only for pages actually demoted
+        self._rest_ids = ids
+        self._rest_eff = eff
+        self.ids = np.empty(0, dtype=np.int64)
+        self.eff = np.empty(0, dtype=np.float64)
+        self.pos = 0
+        self._pend_ids: list[np.ndarray] = []
+        self._pend_eff: list[np.ndarray] = []
+        self._pend_min = np.inf  # lower bound on pending eff
+        self.pend_n = 0  # total pending entries (rebuild heuristic)
+        self._extend(want)
+
+    def add_pending(self, ids: np.ndarray, eff: np.ndarray) -> None:
+        self._pend_ids.append(ids)
+        self._pend_eff.append(eff)
+        self.pend_n += ids.size
+        if eff.size:
+            self._pend_min = min(self._pend_min, float(eff.min()))
+
+    def _extend(self, want: int) -> bool:
+        """Carve the ``>= want`` coldest remainder entries (complete tie
+        classes, via ``np.partition``'s boundary value) into the sorted
+        block. Keeps the block an exact lexicographic prefix of the
+        remaining fast tier."""
+        rid, reff = self._rest_ids, self._rest_eff
+        if rid.size == 0:
+            return False
+        want = min(int(want), rid.size)
+        if want < rid.size:
+            kth = np.partition(reff, want - 1)[want - 1]
+            take = reff <= kth
+            blk_ids, blk_eff = rid[take], reff[take]
+            self._rest_ids, self._rest_eff = rid[~take], reff[~take]
+        else:
+            blk_ids, blk_eff = rid, reff
+            self._rest_ids = np.empty(0, dtype=np.int64)
+            self._rest_eff = np.empty(0, dtype=np.float64)
+        order = np.lexsort((blk_ids, blk_eff))
+        self.ids = np.concatenate([self.ids, blk_ids[order]])
+        self.eff = np.concatenate([self.eff, blk_eff[order]])
+        return True
+
+    def _ensure(self, n: int) -> None:
+        """Grow the sorted block until ``n`` entries are consumable (or the
+        remainder is exhausted)."""
+        while self.ids.size - self.pos < n:
+            if not self._extend(2 * n + 1024):
+                break
+
+    def pop(self, n: int) -> np.ndarray:
+        """The ``n`` lexicographically-coldest current fast pages."""
+        self._ensure(n)
+        avail = self.ids.size - self.pos
+        if not self._pend_ids or (
+            # pending entries are just-promoted (hot) pages; when even the
+            # coldest of them is strictly hotter than the whole main window
+            # the merge cannot select any of them: pure front slicing
+            avail >= n
+            and self._pend_min > self.eff[self.pos + n - 1]
+        ):
+            take = min(n, avail)
+            victims = self.ids[self.pos : self.pos + take]
+            self.pos += take
+            return victims
+        take_main = min(n, avail)
+        m_ids = self.ids[self.pos : self.pos + take_main]
+        m_eff = self.eff[self.pos : self.pos + take_main]
+        p_ids = np.concatenate(self._pend_ids)
+        p_eff = np.concatenate(self._pend_eff)
+        cand_ids = np.concatenate([m_ids, p_ids])
+        cand_eff = np.concatenate([m_eff, p_eff])
+        order = np.lexsort((cand_ids, cand_eff))[:n]
+        victims = cand_ids[order]
+        # taken main entries are always a prefix of the main window (the
+        # main queue is sorted), so the pointer advances past them
+        self.pos += int(np.count_nonzero(order < take_main))
+        keep = np.ones(p_ids.size, dtype=bool)
+        keep[order[order >= take_main] - take_main] = False
+        if np.any(keep):
+            kept_eff = p_eff[keep]
+            self._pend_ids = [p_ids[keep]]
+            self._pend_eff = [kept_eff]
+            self._pend_min = float(kept_eff.min())
+            self.pend_n = kept_eff.size
+        else:
+            self._pend_ids = []
+            self._pend_eff = []
+            self._pend_min = np.inf
+            self.pend_n = 0
+        return victims
 
 
 class _FastSet:
@@ -472,6 +606,7 @@ class TieredPagePool:
         self.interval_touch = np.zeros(self.num_pages, dtype=np.int64)
         self._fast = _FastSet(self.num_pages)
         self._touched: list[np.ndarray] = []  # page batches this interval
+        self._dq: _DemoteQueue | None = None  # per-interval victim queue
 
     @classmethod
     def for_slice(
@@ -530,6 +665,12 @@ class TieredPagePool:
         return self._rss_pages
 
     @property
+    def heat(self) -> np.ndarray:
+        """Current decayed heat, materialized densely (O(num_pages)): a
+        fresh array. Use :meth:`heat_of` for indexed reads."""
+        return self._heat.dense()
+
+    @property
     def effective_fm_size(self) -> int:
         """Fast-memory size currently permitted by the watermarks."""
         return self.hw_capacity - self.watermarks.low_free
@@ -564,6 +705,7 @@ class TieredPagePool:
         pages = np.unique(np.asarray(pages, dtype=np.int64))
         if pages.size == 0:
             return
+        self._dq = None  # arbitrary tier moves invalidate the victim queue
         was_alloc = self._tier[pages] != _UNALLOC
         was_fast = int(np.count_nonzero(self._tier[pages] == _FAST))
         self._tier[pages] = int(tier)
@@ -598,6 +740,7 @@ class TieredPagePool:
         touches = counts if touches is None else np.asarray(touches, dtype=np.int64)
         if pages.size == 0:
             return 0, 0, 0, 0, 0, 0
+        self._dq = None  # new touches change the demotion ranking
         # first-touch allocation for unallocated pages, in access order
         new_mask = self.tier[pages] == _UNALLOC
         if np.any(new_mask):
@@ -636,6 +779,7 @@ class TieredPagePool:
         """Fold the interval counters into the decayed heat and reset.
         O(pages touched this interval), or dense once they reach an eighth
         of the pool."""
+        self._dq = None  # heat fold changes the demotion ranking
         n_touched = sum(batch.size for batch in self._touched)
         if n_touched >= self.num_pages // 8:
             self._heat.fold_dense(self.interval_touch)
@@ -656,6 +800,235 @@ class TieredPagePool:
             self._touched.clear()
         else:
             self._heat.fold(np.empty(0, np.int64), np.empty(0, np.int64))
+
+    # ------------------------------------------------------------- migration
+    def promote(self, pages: np.ndarray) -> tuple[int, int]:
+        """Attempt to promote ``pages`` (slow to fast), hottest first.
+
+        Promotions beyond the free fast capacity *fail*. Returns
+        ``(n_promoted, n_failed)``.
+        """
+        pages = np.asarray(pages, dtype=np.int64)
+        pages = pages[self.tier[pages] == _SLOW]
+        if pages.size == 0:
+            return 0, 0
+        free = self.fast_free
+        if pages.size <= free:
+            # every page fits: the hottest-first ranking cannot change the
+            # outcome, so skip it
+            n_ok = pages.size
+            winners = pages
+        else:
+            order = np.argsort(-self._heat.current(pages), kind="stable")
+            pages = pages[order]
+            n_ok = free
+            winners = pages[:n_ok]
+        self._tier[winners] = _FAST
+        if n_ok:
+            uniq = np.unique(winners)
+            self._fast_used += uniq.size
+            # winners were slow, hence not in the fast index: direct add
+            self._fast.add(uniq)
+            if self._dq is not None:
+                # mid-interval promotions join the active victim queue
+                self._dq.add_pending(
+                    uniq,
+                    self._heat.lookahead(uniq) + self.interval_touch[uniq],
+                )
+        n_fail = pages.size - n_ok
+        self.stats.pgpromote_success += int(n_ok)
+        self.stats.pgpromote_fail += int(n_fail)
+        return int(n_ok), int(n_fail)
+
+    def _promote_cand(self, pages: np.ndarray) -> tuple[int, int]:
+        """:meth:`promote` minus the slow filter and duplicate guard, for
+        policy promotion chunks whose invariants (unique ids, all currently
+        slow) the caller has verified. Outcome-identical to ``promote``."""
+        if pages.size == 0:
+            return 0, 0
+        free = self.fast_free
+        if pages.size <= free:
+            n_ok = pages.size
+            winners = pages
+        else:
+            order = np.argsort(-self._heat.current(pages), kind="stable")
+            winners = pages[order][:free]
+            n_ok = free
+        self._tier[winners] = _FAST
+        if n_ok:
+            self._fast_used += n_ok
+            self._fast.add(winners)
+            if self._dq is not None:
+                self._dq.add_pending(
+                    winners,
+                    self._heat.lookahead(winners) + self.interval_touch[winners],
+                )
+        n_fail = pages.size - n_ok
+        self.stats.pgpromote_success += int(n_ok)
+        self.stats.pgpromote_fail += int(n_fail)
+        return int(n_ok), int(n_fail)
+
+    def demote_coldest(self, n: int, direct: bool = False) -> int:
+        """Demote up to ``n`` coldest fast pages (fast to slow).
+
+        Victims are the ``n`` lexicographically smallest fast pages by
+        (effective heat, page id), served from a per-interval
+        :class:`_DemoteQueue` built over the fast index only: one ranking
+        pass amortizes across every reclaim invocation of the interval.
+        """
+        if n <= 0:
+            return 0
+        size = self._fast_used
+        if size == 0:
+            return 0
+        n = min(n, size)
+        # rebuild when mid-interval promotions dominate the queue: the
+        # ranking inputs are interval-constant, so a rebuild selects the
+        # same victims while restoring cheap front-slice pops
+        if self._dq is None or self._dq.pend_n > max(4 * n, 4096):
+            ids = self._fast.members().copy()
+            # rank victims by *effective* heat (decayed history + the
+            # current interval's touches), so pages promoted moments ago
+            # are not the first demotion victims
+            eff = self._heat.lookahead(ids) + self.interval_touch[ids]
+            self._dq = _DemoteQueue(ids, eff, want=2 * n)
+        victims = self._dq.pop(n)
+        self._tier[victims] = _SLOW
+        self._fast.remove(victims)
+        # victims.size == n whenever the occupancy invariants hold; the
+        # realized count keeps the stats self-consistent regardless
+        n_done = int(victims.size)
+        self._fast_used -= n_done
+        if direct:
+            self.stats.pgdemote_direct += n_done
+        else:
+            self.stats.pgdemote_kswapd += n_done
+        return n_done
+
+    def run_reclaim(self, allow_direct: bool = False) -> tuple[int, int]:
+        """Watermark-driven reclaim (paper Section 4): kswapd toward the high
+        watermark, rate limited per invocation; direct (blocking) reclaim
+        to the min watermark only when the caller needs space synchronously
+        (``allow_direct``). Returns ``(demoted_background, demoted_direct)``.
+        """
+        demoted_bg = demoted_direct = 0
+        free = self.fast_free
+        if allow_direct and free < self.watermarks.min_free:
+            demoted_direct = self.demote_coldest(
+                self.watermarks.min_free - free, direct=True
+            )
+            self.stats.direct_reclaim_events += 1
+            free = self.fast_free
+        if free < self.watermarks.low_free:
+            want = min(self.watermarks.high_free - free, self.kswapd_batch)
+            demoted_bg = self.demote_coldest(want)
+        return demoted_bg, demoted_direct
+
+    def _try_bulk_step(self, cand: np.ndarray, _sched=None):
+        """Whole-policy-step bulk path for :class:`~repro_torch.tiering.
+        policy.TPPPolicy` and its subclasses: returns ``(pm_pr, pm_de,
+        pm_fail, direct)``, or ``None`` only when the queue state was
+        perturbed from outside a policy step (stray pending entries,
+        corrupted supply).
+
+        The TPP promote/reclaim interleaving is a scalar recurrence over
+        ``fast_free`` and the watermarks (:func:`_bulk_schedule`), so the
+        whole step's schedule is computed with plain integers first and
+        the array work applied once: promotions are a prefix of ``cand``
+        and victims come from the front of the demotion queue. When the
+        coldest promoted candidate is not strictly hotter than the queue's
+        ``D``-th entry (the thrash regime), the step's reclaim events are
+        replayed as availability horizons (:meth:`_schedule_events`) and
+        :func:`_resolve_step_victims` merges the queue against the
+        same-step promotions: the victim set the chunked loop would demote
+        page by page. ``cand`` must be unique (the caller checks).
+        """
+        dq = self._dq
+        if dq is None:
+            ids = self._fast.members().copy()
+            eff = self._heat.lookahead(ids) + self.interval_touch[ids]
+            self._dq = dq = _DemoteQueue(ids, eff, want=2 * self.kswapd_batch)
+        elif dq.pend_n:
+            return None  # pending entries from outside a policy step
+        if _sched is None:
+            wm = self.watermarks
+            _sched = _bulk_schedule(
+                self.fast_free,
+                self._fast_used,
+                wm.min_free,
+                wm.low_free,
+                wm.high_free,
+                self.kswapd_batch,
+                int(cand.size),
+            )
+        pm_pr, pm_de, pm_fail, direct_total, events, d_demand = _sched
+        winners = cand[:pm_pr]
+        # --- victim identity: fast path when every victim provably comes
+        # from the pre-step fast tier; the thrash path resolves the
+        # same-step promote/demote interleaving otherwise
+        eff_cand = None
+        victims = None  # base-stream victims (pre-step fast tier)
+        kept = winners  # promoted candidates still fast at step end
+        kept_eff = None
+        base_consumed = 0  # queue entries consumed by the thrash path
+        if d_demand:
+            dq._ensure(d_demand)
+            avail = dq.ids.size - dq.pos
+            interferes = avail < d_demand
+            if not interferes and pm_pr:
+                eff_cand = self._heat.lookahead(cand) + self.interval_touch[cand]
+                interferes = bool(
+                    float(eff_cand[:pm_pr].min()) <= dq.eff[dq.pos + d_demand - 1]
+                )
+            if interferes:
+                if avail + pm_pr < d_demand:
+                    return None  # supply mismatch: corrupted state
+                if eff_cand is None:
+                    eff_cand = (
+                        self._heat.lookahead(cand) + self.interval_touch[cand]
+                    )
+                w = dq.pos + min(avail, d_demand)
+                base_n, cand_taken = _resolve_step_victims(
+                    dq.eff[dq.pos : w],
+                    dq.ids[dq.pos : w],
+                    eff_cand[:pm_pr],
+                    winners,
+                    self._schedule_events(cand.size),
+                )
+                victims = dq.ids[dq.pos : dq.pos + base_n]
+                base_consumed = base_n
+                keep_m = ~cand_taken
+                kept = winners[keep_m]
+                kept_eff = eff_cand[:pm_pr][keep_m]
+        # --- commit: one batched demote + one batched (prefix) promote
+        if d_demand:
+            if victims is None:
+                victims = dq.pop(d_demand)
+            else:
+                dq.pos += base_consumed
+            self._fast.remove(victims)
+            self._tier[victims] = _SLOW
+            self._fast_used -= d_demand
+            self.stats.pgdemote_direct += direct_total
+            self.stats.pgdemote_kswapd += pm_de - direct_total
+        self.stats.direct_reclaim_events += events
+        if pm_pr:
+            self._tier[kept] = _FAST
+            self._fast_used += pm_pr
+            self._fast.add(kept)
+            if kept_eff is not None:
+                dq.add_pending(kept, kept_eff)
+            elif eff_cand is not None:
+                dq.add_pending(kept, eff_cand[:pm_pr])
+            else:
+                dq.add_pending(
+                    kept, self._heat.lookahead(kept) + self.interval_touch[kept]
+                )
+        self.stats.pgpromote_success += pm_pr
+        # pm_fail is reported to the policy outcome only: the chunked loop
+        # never calls promote() on the reclaim-exhausted tail, so the pool
+        # counter (what the profiler snapshots) must not include it either
+        return pm_pr, pm_de, pm_fail, direct_total
 
     # ------------------------------------------------------ sweep bookkeeping
     def _first_touch(self, n_new: int) -> int:

@@ -251,12 +251,45 @@ def test_asking_for_the_card_without_a_gpu_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("scenario_kw", [{"runner": print}, {"pool_factory": dict}])
+def _fixed_runner(scenario, fm_frac, spec, db):
+    """A custom runner: a payload of the interval-times protocol."""
+    return {"total_time": 3.0 * fm_frac, "interval_times": [fm_frac, 2.0 * fm_frac],
+            "policy": spec.name}
+
+
+def _pool_factory(mod):
+    return mod.TieredPagePool
+
+
+@pytest.mark.parametrize("scenario_kw", [{"runner": _fixed_runner},
+                                         {"pool_factory": _pool_factory}])
 def test_later_slice_scenarios_raise(scenario_kw):
-    tr = to_port(pressure_trace(0, rss=500, n_intervals=2))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.run(api.Experiment(scenarios=[api.Scenario(trace=tr, **scenario_kw)]),
-                device="cpu")
+    """The scenarios the port refused until the per-size engine and custom
+    runners were ported: they now run, equal to the JAX package's run
+    (backends ``custom`` and ``simulate``)."""
+    from repro.tiering import page_pool as ref_page_pool
+    from repro_torch.tiering import page_pool
+
+    ref_tr = pressure_trace(0, rss=500, n_intervals=4)
+    kw, ref_kw = dict(scenario_kw), dict(scenario_kw)
+    if "pool_factory" in kw:
+        kw["pool_factory"] = _pool_factory(page_pool)
+        ref_kw["pool_factory"] = _pool_factory(ref_page_pool)
+    port = api.run(api.Experiment(
+        scenarios=[api.Scenario(trace=to_port(ref_tr), name="s", **kw)],
+        fm_fracs=(1.0, 0.4)), device="cpu")
+    ref = ref_api.run(ref_api.Experiment(
+        scenarios=[ref_api.Scenario(trace=ref_tr, name="s", **ref_kw)],
+        fm_fracs=(1.0, 0.4)))
+    assert port.backends == ref.backends
+    assert port.backends == (("custom",) if "runner" in kw else ("simulate",))
+    for p, r in zip(port.runs, ref.runs):
+        assert (p.scenario, p.policy, p.fm_frac) == (r.scenario, r.policy, r.fm_frac)
+        if "runner" in kw:
+            assert p.result == r.result
+        else:
+            assert_sim_equal(p.result, r.result)
+    assert port.total_times().tolist() == ref.total_times().tolist()
 
 
 def test_fault_scenarios_run():
@@ -274,7 +307,18 @@ def test_fault_scenarios_run():
 
 
 def test_later_slice_policy_kinds_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.PolicySpec(kind="first_touch")
+    """first_touch, a kind the port refused until the per-size engine came, runs on
+    the device step equal to the JAX package's per-size engine; an unknown
+    kind still raises."""
+    ref_tr = pressure_trace(0, rss=500, n_intervals=4)
+
+    def exp(mod, tr):
+        return mod.Experiment(scenarios=[mod.Scenario(trace=tr)], fm_fracs=(1.0, 0.3),
+                              policies=[mod.PolicySpec(kind="first_touch")])
+    port = api.run(exp(api, to_port(ref_tr)), device="cpu")
+    ref = ref_api.run(exp(ref_api, ref_tr))
+    assert (port.backends, ref.backends) == (("torch_sweep",), ("simulate",))
+    for p, r in zip(port.runs, ref.runs):
+        assert_sim_equal(p.result, r.result)
     with pytest.raises(ValueError, match="unknown policy kind"):
         api.PolicySpec(kind="nope")

@@ -512,3 +512,156 @@ def test_two_tenant_fleet_on_the_card_equals_the_cpu_lane(cuda):
     assert out["cpu"] == out["cuda"]
     assert launched > 0
     assert all(run[11] for run in out["cuda"] if run[1] == "tuna")  # arbiter log
+
+
+# ------------------------------------------------------------ timing replay
+def _streams(dev, seed=0):
+    """Seeded replays built by the engine on ``dev``: random pages, one page
+    hammered, pages twice in a window, writes, one-event windows."""
+    import dataclasses
+
+    from repro_torch.sim.costmodel import OPTANE_LIKE
+    from repro_torch.timing import AddressTimingEngine, TimingParams
+
+    rng = np.random.default_rng(seed)
+    base = TimingParams.from_profile(OPTANE_LIKE, max_events=20_000)
+    w1 = dataclasses.replace(base, window=1.0)
+    cases = [
+        (base, 4, dict(counts=rng.integers(1, 80, size=3_000),
+                       tiers=rng.integers(0, 2, size=3_000), rand_frac=0.7)),
+        (base, 2, dict(counts=np.array([70_000]), tiers=np.array([1]))),
+        (base, 8, dict(counts=np.array([9_000, 7_000, 3]), tiers=np.array([0, 1, 1]))),
+        (base, 4, dict(counts=rng.integers(1, 300, size=1_000),
+                       tiers=rng.integers(0, 2, size=1_000), rand_frac=0.5,
+                       writes=rng.integers(0, 150, size=1_000), pm_pr=50, pm_de=70)),
+        (w1, 1, dict(counts=rng.integers(1, 30, size=500),
+                     tiers=rng.integers(0, 2, size=500))),
+    ]
+    out = []
+    for i, (params, threads, kw) in enumerate(cases):
+        eng = AddressTimingEngine(params, seed=seed, device=dev)
+        counts = np.asarray(kw.pop("counts"), dtype=np.int64)
+        _, (ev, w, chan) = eng._prepare(
+            index=i, pages=np.arange(counts.size), counts=counts,
+            tiers=np.asarray(kw.pop("tiers"), dtype=np.int8), ops=0.0,
+            num_threads=threads, **kw)
+        out.append((ev, w, chan))
+    return out
+
+
+def _launch_args(streams, dev):
+    sizes = [ev.page.numel() for ev, _, _ in streams]
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    return (torch.cat([ev.page for ev, _, _ in streams]),
+            torch.cat([ev.tier for ev, _, _ in streams]),
+            torch.cat([ev.occ for ev, _, _ in streams]),
+            torch.cat([ev.lat for ev, _, _ in streams]),
+            torch.from_numpy(off).to(dev),
+            torch.tensor([w for _, w, _ in streams], dtype=torch.int64, device=dev),
+            torch.tensor([c for _, _, c in streams], dtype=torch.float64, device=dev),
+            torch.tensor([ev.n_pages for ev, _, _ in streams], dtype=torch.int64,
+                         device=dev))
+
+
+def test_timing_replay_matches_plain(cuda):
+    from repro_torch.kernels.timing_replay import timing_replay
+
+    card = _streams(cuda)
+    host = _streams("cpu")
+    for (a, wa, ca), (b, wb, cb) in zip(card, host):
+        assert (wa, ca, a.scale) == (wb, cb, b.scale)
+        for f in ("page", "tier", "occ", "lat"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f))
+    assert card[-1][1] == 1
+    args = _launch_args(card, cuda)
+    before = timing_replay.launches
+    got = timing_replay(*args)
+    torch.cuda.synchronize()
+    assert timing_replay.launches == before + 1
+    want = timing_replay(*[x.cpu() for x in args])
+    assert got.cpu().tolist() == want.tolist()
+    for _ in range(5):
+        assert torch.equal(timing_replay(*args), got)
+
+
+def test_timing_replay_empty_replay_ends_at_its_preload(cuda):
+    from repro_torch.kernels.timing_replay import timing_replay
+
+    (ev, w, chan), = _streams(cuda)[:1]
+    args = _launch_args([(ev, w, chan), (ev.__class__(
+        page=ev.page[:0], tier=ev.tier[:0], occ=ev.occ[:0], lat=ev.lat[:0],
+        scale=1.0, n_pages=1), 3, (4e-6, 2e-6)), (ev, w, chan)], cuda)
+    got = timing_replay(*args).cpu().tolist()
+    assert got[1] == 4e-6 and got[0] == got[2]
+    assert got == timing_replay(*[x.cpu() for x in args]).tolist()
+
+
+def test_timing_replay_spans_blocks(cuda):
+    """300 replays, three blocks of the kernel: each replay's row of
+    ``page_done`` and of ready times at its own offset, equal to the plain
+    version replay by replay."""
+    from repro_torch.kernels.timing_replay import timing_replay
+
+    base = _streams(cuda)
+    streams = []
+    for k in range(300):
+        ev, w, chan = base[k % 5]
+        n = 100 + 3 * k
+        streams.append((ev.__class__(page=ev.page[:n], tier=ev.tier[:n], occ=ev.occ[:n],
+                                     lat=ev.lat[:n], scale=ev.scale, n_pages=ev.n_pages),
+                        w, chan))
+    args = _launch_args(streams, cuda)
+    got = timing_replay(*args).cpu().tolist()
+    assert got == timing_replay(*[x.cpu() for x in args]).tolist()
+
+
+def test_chain_latency_is_measured(cuda):
+    from repro_torch.kernels.timing_replay import chain_latency_ns
+
+    for n in (4_096, 3_250_585):
+        links = chain_latency_ns(n, cuda)
+        assert set(links) == {"load_ns", "f64_add_ns"}
+        assert 0.0 < links["f64_add_ns"] < links["load_ns"] < 1e5
+
+
+def test_timing_runner_on_the_card_equals_the_cpu(cuda):
+    import functools
+
+    from repro_torch.kernels.timing_replay import timing_replay
+    from repro_torch.sim import api
+    from repro_torch.sim.costmodel import OPTANE_LIKE
+    from repro_torch.sim.workloads import thrash_trace
+    from repro_torch.timing import calibrate, timing_runner
+
+    cal = calibrate(OPTANE_LIKE, device=cuda)
+    assert cal.to_dict() == calibrate(OPTANE_LIKE, device="cpu").to_dict()
+    tr = thrash_trace(rss_pages=4_000, n_intervals=8)
+    out = {}
+    for device in ("cpu", cuda):
+        before = timing_replay.launches
+        runner = functools.partial(timing_runner, calibration=cal.to_dict(), device=device)
+        rs = api.run(api.Experiment(
+            scenarios=[api.Scenario(trace=tr, name="t", runner=runner)],
+            fm_fracs=(1.0, 0.5)), device=device)
+        out[str(device)] = [r.result for r in rs.runs]
+        launched = timing_replay.launches - before
+    assert out["cpu"] == out["cuda"]
+    assert launched == 2  # one launch a (spec, size): every interval at once
+
+
+def test_first_touch_sweep_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.sim import api
+    from repro_torch.sim.faults import FaultSpec
+    from repro_torch.sim.workloads import thrash_trace
+
+    tr = thrash_trace(rss_pages=5_000, n_intervals=10)
+    out = {}
+    for device in ("cpu", cuda):
+        before = victim_partition.launches
+        out[str(device)] = _runs_plain(api.run(api.Experiment(
+            scenarios=[api.Scenario(trace=tr, faults=FaultSpec(**HARSH))],
+            fm_fracs=(1.0, 0.895, 0.5, 0.266),
+            policies=[api.PolicySpec(kind="first_touch")]), device=device))
+        launched = victim_partition.launches - before
+    assert out["cpu"] == out["cuda"]
+    assert launched == 0  # first touch selects no victims

@@ -61,3 +61,51 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# TUNA010 for the port: the timing engine measures the interval cost model,
+# so it is built of none of the engines that run it, and its replays are
+# seeded, never timed by a wall clock
+TIMING = sorted((PORT / "timing").glob("*.py"))
+_INTERVAL_ENGINES = ("repro_torch.sim.engine", "repro_torch.sim.sweep",
+                     "repro_torch.sim.torch_engine")
+_WALL_CLOCKS = {"time", "time_ns", "perf_counter", "perf_counter_ns", "monotonic",
+                "monotonic_ns", "process_time", "process_time_ns", "clock_gettime",
+                "now", "utcnow"}
+
+
+@pytest.mark.parametrize("path", TIMING, ids=lambda p: str(p.relative_to(REPO)))
+def test_timing_engine_stays_independent(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            if node.module in ("time", "datetime"):
+                bad += [f"from {node.module} import {a.name}" for a in node.names]
+        elif isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            owner = getattr(node.func.value, "id", None) or getattr(node.func.value, "attr", None)
+            if owner in ("time", "datetime") and node.func.attr in _WALL_CLOCKS:
+                bad.append(f"{owner}.{node.func.attr}()")
+        bad += [n for n in names
+                if any(n == m or n.startswith(m + ".") for m in _INTERVAL_ENGINES)]
+    assert not bad, f"{path.name}: {bad}"
+
+
+def test_importing_the_timing_engine_loads_no_interval_engine():
+    code = (
+        "import sys\n"
+        "import repro_torch.timing\n"
+        f"bad = sorted(m for m in sys.modules if m in {_INTERVAL_ENGINES!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
