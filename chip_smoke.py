@@ -35,7 +35,8 @@ Phases, each of which must pass (any failure exits non-zero):
    decisions, watermark log, slot map, tiers, heat, both pools' bits); and
    Qwen3-1.7B and RWKV6-3B at full width and 2 layers in float32, the same
    weights on both (forward logits, a short prefill's logits and state)
-   within a stated tolerance;
+   within a stated tolerance, and on each lane that prefill (one forward)
+   against the decode loop within it too;
 4. the sweep's main path at full size through the entry points a user
    calls (``repro_torch.sim.api.run``, ``build_database``), with the
    ``victim_partition`` count set to 0 just before and read just after;
@@ -63,9 +64,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ``wkv6`` counts set to 0 just before and read just after (28 and 32
    launches); the kernel-path forward is held against the same forward
    through the plain versions on the card, within twice the distance of the
-   plain bfloat16 forward from the plain float32 one; the decode loop fills
-   the state
-   (its last logits against the prefill fn's), then 32 decode steps;
+   plain bfloat16 forward from the plain float32 one; ``prefill`` fills the
+   decode state by one forward (its last logits against the prefill fn's),
+   held against the decode loop on the first 64 prompt tokens (each
+   against the float32 decode loop: the one-forward fill no farther than
+   twice the bfloat16 loop), then 32 decode steps;
 9. ``flash_attention`` and ``wkv6`` timed on the first layer's serving
    inputs (CUDA events, and for ``wkv6`` the profiler's device time and
    ptxas's registers), beside the plain version, the bound and, for
@@ -131,7 +134,28 @@ Phases, each of which must pass (any failure exits non-zero):
     (f) a ``pool_factory`` scenario == the device sweep, every kind; (g)
     TPP at 0.75 over phase 4's trace through ``timing_runner``, every
     interval replayed in one launch, bytes conserved and each replay at
-    least its channels' occupancy.
+    least its channels' occupancy;
+13. the rest of the experiment API on the card (``repro_torch.tiering.
+    policy.register_policy``, ``repro_torch.sim.api.run`` with
+    ``parallelism``, ``cache_dir`` and ``scenario_timeout``, RunSet JSON,
+    ``build_database(workers=...)``), with the ``victim_partition`` count
+    set to 0 just before and read just after (the fan-out workers report
+    theirs): (a) the JAX package's test ``LukewarmPolicy`` and a subclass
+    whose ``_admit`` rejects everything, registered, on bfs at its
+    defaults: both on the per-size engine (``simulate``), the second
+    promoting nothing, the device step refusing both; a subclass that
+    overrides nothing on the device step, equal to TPP; (b) phase 10's
+    database rebuilt in 4 spawned processes, record for record equal to
+    phase 10's serial build (distinct worker pids, each worker's peak
+    memory on the card, serial against fan-out seconds); (c) phase 4's
+    profile experiment through the result cache twice: the first document
+    equal to phase 4's RunSet, the second call a hit that launches nothing;
+    (d) ``RunSet.from_json(rs.to_json()) == rs`` for the RunSets of phases
+    4, 10, 11 and 12 (the timing runner's payloads among them); (e) a
+    trace factory that raises in a worker and a scenario that hangs past
+    ``scenario_timeout`` each raise ``ScenarioExecutionError`` naming the
+    scenario, no worker is left, and a sweep on the card then gives phase
+    4's first interval bit for bit.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -184,6 +208,7 @@ PROBE_PAGES, PROBE_PAGE_ELEMS = 262_144, 1024
 # prompts and 32 greedy new tokens each, weights drawn from a seed on the card
 MODEL_FAMILIES = ("qwen3-1.7b", "rwkv6-3b")
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
+ORACLE_LEN = 64  # prompt tokens the decode-loop oracle of the state fill replays
 PROFILED_STEPS = 4  # decode steps read by the profiler; the rest are timed
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 # The forward through the kernels is held against the same forward through
@@ -391,6 +416,10 @@ def runs_plain(rs) -> list:
     out = []
     for r in rs.runs:
         res = r.result
+        if isinstance(res, dict):  # a custom runner's payload
+            out.append({"cell": (r.scenario, r.policy, r.fm_frac, r.backend),
+                        "payload": res})
+            continue
         out.append({
             "cell": (r.scenario, r.policy, r.fm_frac, r.backend),
             "stats": res.stats,
@@ -497,15 +526,16 @@ def main_path(dev, capture: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    profile = api.Experiment(
+        name="profile", scenarios=[api.Scenario(trace=trace)],
+        fm_fracs=SWEEP_FRACS, collect_configs=True,
+    )
     t = time.perf_counter()
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA],
     ) as prof:
-        sweep = api.run(api.Experiment(
-            name="profile", scenarios=[api.Scenario(trace=trace)],
-            fm_fracs=SWEEP_FRACS, collect_configs=True,
-        ))
+        sweep = api.run(profile)
         torch.cuda.synchronize()
     phases["sweep_s"] = time.perf_counter() - t
     # device time: every kernel and copy the profiler saw on the card
@@ -548,6 +578,9 @@ def main_path(dev, capture: dict) -> dict:
     torch.cuda.synchronize()
     phases["tuned_run_s"] = time.perf_counter() - t
     torch_engine.victim_partition = victim_partition
+    # phase 13 reruns the profile experiment through the cache and round
+    # trips both RunSets through JSON
+    capture.update(profile=profile, runsets=[sweep, tuned])
 
     # --- the outputs are what the system promises
     for rs in (sweep, tuned):
@@ -1474,13 +1507,20 @@ def model_lanes_agree(dev) -> dict:
     """Each family at full width and 2 layers, in float32, the same weights
     (drawn on the CPU from a seed) on the CPU and on the card: the forward's
     logits and a 4-token prefill's logits and decode state within
-    LANE_TOL."""
+    LANE_TOL; on each lane, that prefill (one forward) against the decode
+    loop (``prefill_stepwise``, its oracle) within LANE_TOL too."""
     from dataclasses import replace
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import forward, init_decode_state, init_model, prefill
+    from repro_torch.models import (
+        forward,
+        init_decode_state,
+        init_model,
+        prefill,
+        prefill_stepwise,
+    )
 
     out = {}
     for name in MODEL_FAMILIES:
@@ -1496,10 +1536,20 @@ def model_lanes_agree(dev) -> dict:
             logits, _ = forward(p, cfg, t)
             state = init_decode_state(cfg, LANE_BATCH, 8, device=device)
             last, state = prefill(p, cfg, t[:, :4], state)
-            lanes[lane] = (logits.cpu(), last.cpu(), {k: v.cpu() for k, v in state.items()})
+            olast, ostate = prefill_stepwise(p, cfg, t[:, :4],
+                                             init_decode_state(cfg, LANE_BATCH, 8, device=device))
+            oracle = {"prefill_logits": float((last - olast).abs().max()),
+                      **{k: float((state[k] - ostate[k]).abs().max()) for k in state}}
+            check(torch.allclose(last, olast, rtol=LANE_TOL, atol=LANE_TOL) and all(
+                torch.allclose(state[k], ostate[k], rtol=LANE_TOL, atol=LANE_TOL)
+                for k in state),
+                f"{name} ({lane}): prefill differs from the decode loop beyond "
+                f"{LANE_TOL}: {oracle}")
+            lanes[lane] = (logits.cpu(), last.cpu(), {k: v.cpu() for k, v in state.items()},
+                           max(oracle.values()))
             del p
         torch.cuda.synchronize()
-        (lc, pc, sc), (lg, pg, sg) = lanes["cpu"], lanes["cuda"]
+        (lc, pc, sc, oc), (lg, pg, sg, og) = lanes["cpu"], lanes["cuda"]
         diffs = {"logits": float((lc - lg).abs().max()),
                  "prefill_logits": float((pc - pg).abs().max()),
                  **{k: float((sc[k] - sg[k]).abs().max()) for k in sc}}
@@ -1507,7 +1557,8 @@ def model_lanes_agree(dev) -> dict:
             pc, pg, rtol=LANE_TOL, atol=LANE_TOL) and all(
             torch.allclose(sc[k], sg[k], rtol=LANE_TOL, atol=LANE_TOL) for k in sc)
         check(ok, f"{name}: CPU and CUDA lanes differ beyond {LANE_TOL}: {diffs}")
-        out[name] = {"max_abs_diff": diffs, "logits_max_abs": float(lc.abs().max())}
+        out[name] = {"max_abs_diff": diffs, "logits_max_abs": float(lc.abs().max()),
+                     "prefill_vs_decode_loop_max_abs_diff": {"cpu": oc, "cuda": og}}
         del params, lanes
     return out
 
@@ -1553,9 +1604,10 @@ def serve_model(name: str, dev, capture: dict) -> dict:
     """One family at full width through repro_torch.launch.serve: 4 prompts
     of 2,048 tokens prefilled (the kernel counts set to 0 just before the
     counted call and read just after), the kernel-path forward held against
-    the plain-path forward on the card, the decode state filled by the
-    decode loop (``prefill``), then 32 greedy decode steps. ``capture``
-    receives the first layer's kernel inputs."""
+    the plain-path forward on the card, the decode state filled by one
+    forward (``prefill``) and held against the decode loop on the first
+    ORACLE_LEN tokens (``fill_oracle``), then 32 greedy decode steps.
+    ``capture`` receives the first layer's kernel inputs."""
     from dataclasses import replace
 
     import torch
@@ -1634,9 +1686,8 @@ def serve_model(name: str, dev, capture: dict) -> dict:
     torch.cuda.synchronize()
     plain_forward_s = time.perf_counter() - t
     params32 = _to(params, torch.float32)
-    logits_32, _ = forward(params32, replace(cfg, param_dtype="float32",
-                                             compute_dtype="float32"), tokens)
-    del params32
+    cfg32 = replace(cfg, param_dtype="float32", compute_dtype="float32")
+    logits_32, _ = forward(params32, cfg32, tokens)
     ops.attention, ops.wkv6 = flash_attention, wkv6
     path = _logit_agreement(logits_k, logits_p)
     kernel_vs_f32 = _logit_agreement(logits_k, logits_32)
@@ -1646,14 +1697,20 @@ def serve_model(name: str, dev, capture: dict) -> dict:
           f"{MODEL_PATH_FACTOR} x the bfloat16 plain path vs float32 {plain_vs_f32}")
     del logits_k, logits_p, logits_32
 
-    # 3. the decode state filled by the decode loop
+    # 3. the decode state filled by one forward (prefill), then that fill
+    # held against the decode loop (its oracle) on the prompts' first
+    # ORACLE_LEN tokens
     state = fns["init_state"]()
     t = time.perf_counter()
     last, state = prefill(params, cfg, tokens, state)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t
     fill = _logit_agreement(last, first)
-    check(bool(torch.isfinite(last).all()), f"{name}: decode-loop prefill not finite")
+    check(bool(torch.isfinite(last).all()), f"{name}: prefill not finite")
+    check(all(bool(torch.isfinite(v).all()) for v in state.values()),
+          f"{name}: prefill's decode state not finite")
+    oracle = fill_oracle(params, params32, cfg, cfg32, tokens[:, :ORACLE_LEN], dev)
+    del params32
 
     # 4. 32 greedy decode steps: the first PROFILED_STEPS under the profiler
     # (device time), the rest timed (wall)
@@ -1700,13 +1757,13 @@ def serve_model(name: str, dev, capture: dict) -> dict:
         "kernel_path_vs_f32": kernel_vs_f32,
         "plain_path_vs_f32": plain_vs_f32,
         "plain_forward_s": plain_forward_s,
-        "decode_loop_prefill_s": fill_s,
-        "decode_loop_vs_forward_last_logits": fill,
+        "state_fill_s": fill_s,
+        "state_fill_vs_prefill_fn_last_logits": fill,
+        "state_fill_oracle": oracle,
         "decode_ms_per_step": decode_ms,
         "decode_device_ms_per_step": decode_device_ms,
         "decode_device_busy_share": decode_device_ms / decode_ms,
         "decode_tokens_per_s": SERVE_BATCH * 1e3 / decode_ms,
-        "decode_loop_prefill_ms_per_step": fill_s * 1e3 / PROMPT_LEN,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "wall_s": time.perf_counter() - t_all,
     }
@@ -1714,6 +1771,50 @@ def serve_model(name: str, dev, capture: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return result
+
+
+def _rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-300))
+
+
+def fill_oracle(params, params32, cfg, cfg32, prompt, dev) -> dict:
+    """``prefill`` (one forward) against ``prefill_stepwise`` (the decode
+    loop, one step a token) on ``prompt``, in bfloat16 at full size: each
+    is held against the float32 decode loop, and the one-forward fill's
+    distance (relative L2, last logits and every state tensor) must be at
+    most MODEL_PATH_FACTOR times the decode loop's. Also reports the
+    float32 fills' distance from each other."""
+    import torch
+
+    from repro_torch.models import init_decode_state, prefill, prefill_stepwise
+
+    B, S = prompt.shape
+    out = {"tokens": S}
+    runs = {}
+    for key, fill, p, c in (("one", prefill, params, cfg),
+                            ("loop", prefill_stepwise, params, cfg),
+                            ("one32", prefill, params32, cfg32),
+                            ("loop32", prefill_stepwise, params32, cfg32)):
+        t = time.perf_counter()
+        last, st = fill(p, c, prompt, init_decode_state(c, B, S, device=dev))
+        torch.cuda.synchronize()
+        out[f"{key}_s"] = time.perf_counter() - t
+        runs[key] = {"last_logits": last, **st}
+    rows = {}
+    for k in runs["loop32"]:
+        ref = runs["loop32"][k]
+        row = {"one": _rel_l2(runs["one"][k], ref), "loop": _rel_l2(runs["loop"][k], ref),
+               "one32": _rel_l2(runs["one32"][k], ref)}
+        check(row["one"] <= MODEL_PATH_FACTOR * row["loop"],
+              f"{cfg.name}: the one-forward fill's {k} is {row['one']:.3g} from the "
+              f"float32 decode loop, beyond {MODEL_PATH_FACTOR} x the bfloat16 decode "
+              f"loop's {row['loop']:.3g}")
+        rows[k] = row
+    out["rel_l2_from_f32_decode_loop"] = rows
+    return out
 
 
 def _visible_pairs(S: int, T: int, causal: bool) -> int:
@@ -1839,6 +1940,13 @@ BIG_BTREE = dict(levels=7)
 BIG_BTREE_PAGES = 1_607_817
 
 
+def db_curve_fracs():
+    """Each database record's curve: 1.0 .. 0.2 in steps of 0.04."""
+    import numpy as np
+
+    return np.round(np.arange(1.0, 0.199, -0.04), 3)
+
+
 def paper_tuner():
     """The tuner of the paper's experiment (fig3_7_tuning.py's tuner_spec)."""
     from repro_torch.sim import api
@@ -1923,8 +2031,8 @@ def bench_db(traces: dict, device=None, per_workload: int = DB_PER_WORKLOAD,
                 ))
     seconds["harvest_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    db = build_database(configs, fm_fracs=np.round(np.arange(1.0, 0.199, -0.04), 3),
-                        n_intervals=DB_INTERVALS, device=device)
+    db = build_database(configs, fm_fracs=db_curve_fracs(), n_intervals=DB_INTERVALS,
+                        workers=1, device=device)
     seconds["build_database_s"] = time.perf_counter() - t
     return db, configs, seconds
 
@@ -2180,9 +2288,12 @@ def paper_experiment(dev) -> dict:
         "victim_partition_launches": launches,
         "max_abs_err": big_err,
         "seconds": seconds,
-        # for phases 11 and 12, which reuse the database and the traces
+        # for phases 11 to 13, which reuse the database, its configurations,
+        # the traces and the RunSets
         "db": db,
+        "configs": configs,
         "traces": traces,
+        "runsets": list(card.values()),
     }
 
 
@@ -2738,6 +2849,7 @@ def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
     check(all(any(d.degraded for d in by_level["harsh"].record(
         policy=f"{k}_tuna").decisions) for k in KNEE_KINDS),
         "faults@harsh: no degraded tuner decision")
+    out["runsets"] = [by_level["harsh"]]  # phase 13's JSON round trips
     del by_level
     out["fault_rows"] = rows
     out["fault_launches"] = victim_partition.launches
@@ -2805,6 +2917,7 @@ def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
                            name="fleet[noisy@harsh]", device="cpu")
             check(runs_plain(hc) == runs_plain(h),
                   "fleet noisy@harsh: the CPU and CUDA lanes differ")
+            out["runsets"].append(h)
             tuned = [r for r in h.runs if r.policy == "fleet_tuna"]
             check(all(r.fault_events for r in tuned), "fleet noisy@harsh: no events")
             degraded = sum(d.degraded is not None for r in tuned for d in r.decisions)
@@ -3046,9 +3159,12 @@ def fidelity_run(traces: dict, cal, device=None) -> dict:
 
     pooled: dict = {}
     rows = {}
+    runsets = []  # the first workload's pair, for phase 13's JSON round trips
     for name, tr in traces.items():
         t = time.perf_counter()
         rs_model, rs_timing = clock_pair(tr, name, cal=cal, device=device)
+        if not runsets:
+            runsets = [rs_model, rs_timing]
         wall_s = time.perf_counter() - t
         div = divergences(tr, rs_model, rs_timing)
         for f in FIDELITY_FRACS:
@@ -3070,7 +3186,8 @@ def fidelity_run(traces: dict, cal, device=None) -> dict:
     mean = {r: v["mean_abs"] for r, v in regimes.items()}
     bal = mean.get("balanced", 0.0)
     concentrated = max(mean.get("skewed_mlp", 0.0), mean.get("migration", 0.0)) >= bal
-    return {"rows": rows, "regimes": regimes, "concentrated": concentrated}
+    return {"rows": rows, "regimes": regimes, "concentrated": concentrated,
+            "runsets": runsets}
 
 
 def replay_launch(replays: list):
@@ -3581,6 +3698,326 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 13
+# The rest of the experiment API on the card: the plug-in policy registry
+# and its routing, the fanned-out database build, the result cache, RunSet
+# JSON and the fan-out's failures (repro_torch.sim.api,
+# repro_torch.tiering.policy, repro_torch.core.tuner.build_database).
+FANOUT_WORKERS = 4  # spawned processes of the fanned-out database build
+HANG_TIMEOUT_S = 30.0  # scenario_timeout of the hung scenario in (e)
+
+
+def plugin_classes():
+    """The JAX package's test LukewarmPolicy (``tests/test_api.py``), a
+    subclass whose ``_admit`` rejects every candidate, and one that
+    overrides nothing, as subclasses of the port's TPPPolicy."""
+    from repro_torch.tiering.policy import TPPPolicy
+
+    class LukewarmPolicy(TPPPolicy):
+        """Promotes only every other interval of each pool."""
+
+        kind = "smoke_lukewarm"
+
+        def __init__(self, hot_thr=4, skip_odd=True):
+            super().__init__(hot_thr=hot_thr)
+            self.skip_odd = bool(skip_odd)
+            self._i = {}
+
+        def _admit(self, pool, cand):
+            i = self._i.get(id(pool), 0)
+            self._i[id(pool)] = i + 1
+            if self.skip_odd and i % 2 == 1:
+                return cand[:0], int(cand.size)
+            return cand, 0
+
+    class RejectAllPolicy(TPPPolicy):
+        kind = "smoke_reject_all"
+
+        def _admit(self, pool, cand):
+            return cand[:0], int(cand.size)
+
+    class PlainTPPPolicy(TPPPolicy):
+        kind = "smoke_plain_tpp"
+
+    return LukewarmPolicy, RejectAllPolicy, PlainTPPPolicy
+
+
+def registry_checks(dev, trace) -> dict:
+    """(a): plug-ins through register_policy and run(device=None) on a
+    workload at its defaults."""
+    from repro_torch.sim import api, sweep
+    from repro_torch.tiering import policy
+
+    classes = plugin_classes()
+    for cls in classes:
+        policy.register_policy(cls)
+    lukewarm, reject, plain = (cls.kind for cls in classes)
+    fracs = (0.75, 0.5)
+
+    def one(kind, params=None):
+        return api.run(api.Experiment(
+            name=f"registry[{kind}]", scenarios=[api.Scenario(trace=trace)],
+            fm_fracs=fracs, policies=[api.PolicySpec(kind=kind, label=kind,
+                                                     params=params or {})],
+            collect_configs=True))
+
+    try:
+        rs = {kind: one(kind) for kind in ("tpp", lukewarm, reject, plain)}
+        out = {}
+        for kind, r in rs.items():
+            check(r.spec["device"] == str(dev), f"registry {kind} ran on {r.spec['device']}")
+            out[kind] = {"backend": r.backends[0],
+                         "promoted": [x.result.stats["pgpromote_success"] for x in r.runs],
+                         "admit_fail": [sum(c.pm_admit_fail for c in x.result.configs)
+                                        for x in r.runs]}
+        check(rs[lukewarm].backends == rs[reject].backends == ("simulate",),
+              "registry: a plug-in overriding _admit did not route to the per-size engine")
+        check(all(p == 0 for p in out[reject]["promoted"]),
+              f"registry: the reject-all plug-in promoted {out[reject]['promoted']}")
+        check(all(a > 0 for a in out[reject]["admit_fail"]),
+              "registry: the reject-all plug-in rejected nothing")
+        check(all(a > 0 for a in out[lukewarm]["admit_fail"]),
+              "registry: the lukewarm plug-in never skipped an interval")
+        check(rs[plain].backends == rs["tpp"].backends == ("torch_sweep",)
+              and runs_plain(rs[plain]) == [{**x, "cell": (x["cell"][0], plain)
+                                             + x["cell"][2:]}
+                                            for x in runs_plain(rs["tpp"])],
+              "registry: a subclass overriding nothing differs from TPP on the device step")
+        check(all(p > 0 for p in out["tpp"]["promoted"]), "registry: TPP promoted nothing")
+        refused = {}
+        for cls in classes[:2]:
+            try:
+                sweep._sweep_fm_fracs(trace, fracs, policy=cls())
+            except ValueError as e:
+                refused[cls.kind] = "not one the device step replicates" in str(e)
+        check(refused == {lukewarm: True, reject: True},
+              f"registry: the device step did not refuse the plug-ins: {refused}")
+        out["device_step_refused"] = sorted(refused)
+        out["trace"] = {"name": trace.name, "pages": trace.rss_pages, "intervals": len(trace)}
+        return out
+    finally:
+        for cls in classes:
+            policy.POLICIES.pop(cls.kind, None)
+
+
+def fanout_build(dev, configs, serial_db, serial_s: float) -> dict:
+    """(b): build_database over phase 10's configurations in FANOUT_WORKERS
+    spawned processes, record by record equal to phase 10's serial build;
+    the RunSet is read through a wrapper of ``api.run``, and a run that fell
+    back to serial fails the phase."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tuner import build_database
+    from repro_torch.sim import api
+
+    seen = []
+    run = api.run
+
+    def recording(*args, **kw):
+        rs = run(*args, **kw)
+        seen.append(rs)
+        return rs
+
+    api.run = recording
+    t = time.perf_counter()
+    try:
+        db = build_database(configs, fm_fracs=db_curve_fracs(), n_intervals=DB_INTERVALS,
+                            workers=FANOUT_WORKERS, device=None)
+        torch.cuda.synchronize()
+    finally:
+        api.run = run
+    fanout_s = time.perf_counter() - t
+    check(len(seen) == 1 and seen[0].spec["device"] == str(dev),
+          "fan-out build: not one run on the card")
+    fan = seen[0].fanout
+    check(fan is not None, "fan-out build fell back to serial")
+    pids = sorted({w["pid"] for w in fan})
+    check(len(pids) > 1 and os.getpid() not in pids,
+          f"fan-out build ran in processes {pids} (parent {os.getpid()})")
+    check(len(db.records) == len(serial_db.records) == len(configs),
+          "fan-out build: record count")
+    same = all(np.array_equal(a.times, b.times) and a.times.dtype == b.times.dtype
+               and a.config == b.config and np.array_equal(a.fm_fracs, b.fm_fracs)
+               for a, b in zip(db.records, serial_db.records))
+    check(same, "fan-out build differs from phase 10's serial build")
+    peak = {}
+    for w in fan:
+        peak[w["pid"]] = max(peak.get(w["pid"], 0), w["peak_hbm_bytes"] or 0)
+    launches = sum(w["launches"].get("victim_partition", 0) for w in fan)
+    check(launches > 0, "fan-out build: no worker launched victim_partition")
+    return {"records": len(db.records), "workers": FANOUT_WORKERS,
+            "victim_partition_launches_in_workers": launches,
+            "worker_pids": pids, "parent_pid": os.getpid(),
+            "scenarios_per_worker": {str(p): sum(w["pid"] == p for w in fan) for p in pids},
+            "peak_hbm_bytes_per_worker": {str(p): b for p, b in peak.items()},
+            "fanout_s": fanout_s, "serial_s": serial_s, "speedup": serial_s / fanout_s}
+
+
+def cache_checks(dev, profile, phase4_rs) -> dict:
+    """(c): phase 4's profile experiment through run(cache_dir=...) twice:
+    the first document equals phase 4's RunSet (apart from the spec's
+    cache-neutral entries), the second call is a hit that launches
+    nothing."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.victim_partition import victim_partition
+    from repro_torch.sim import api
+
+    def neutral(doc):
+        d = json.loads(doc)
+        for k in api.CACHE_NEUTRAL:
+            d["spec"].pop(k, None)
+        return d
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="runset_cache") as tmp:
+        launches = []
+        for attempt in ("miss_s", "hit_s"):
+            before = victim_partition.launches
+            t = time.perf_counter()
+            rs = api.run(profile, cache_dir=tmp)
+            torch.cuda.synchronize()
+            out[attempt] = time.perf_counter() - t
+            launches.append(victim_partition.launches - before)
+            if attempt == "miss_s":
+                files = list(Path(tmp).glob("runset_*.json"))
+                check(len(files) == 1, f"cache: {len(files)} entries after the first run")
+                doc = files[0].read_text()
+                first = rs
+        check(neutral(doc) == neutral(phase4_rs.to_json()),
+              "cache: the first document differs from phase 4's RunSet")
+        check(first.to_json() == doc and rs.to_json() == doc,
+              "cache: the hit's RunSet differs from the document")
+        check(launches[0] > 0, "cache: the first run never launched victim_partition")
+        check(launches[1] == 0, f"cache: the hit launched victim_partition {launches[1]} times")
+        check(rs.spec["device"] == str(dev), "cache: the entry was not made on the card")
+    out.update(document_bytes=len(doc.encode()), launches_miss=launches[0],
+               launches_hit=launches[1])
+    return out
+
+
+def json_round_trips(runsets: dict) -> dict:
+    """(d): RunSet.from_json(rs.to_json()) == rs for every RunSet given."""
+    from repro_torch.sim import api
+
+    out = {}
+    for phase, sets in runsets.items():
+        n = 0
+        for rs in sets:
+            text = rs.to_json()
+            back = api.RunSet.from_json(text)
+            check((back.name, back.spec, back.chunked_step_count, back.backends)
+                  == (rs.name, rs.spec, rs.chunked_step_count, rs.backends)
+                  and runs_plain(back) == runs_plain(rs) and back.to_json() == text,
+                  f"JSON round trip of {rs.name} (phase {phase}) is not lossless")
+            n += len(text)
+        out[phase] = {"runsets": len(sets), "bytes": n,
+                      "backends": sorted({b for rs in sets for b in rs.backends})}
+    check(any("custom" in v["backends"] for v in out.values()),
+          "JSON round trips: no custom-runner payload among them")
+    return out
+
+
+def failure_checks(dev, trace, phase4_rs) -> dict:
+    """(e): a scenario whose trace factory raises in a spawned worker, and
+    one that hangs past scenario_timeout, each raise ScenarioExecutionError
+    naming it; no worker is left; then phase 4's first interval again on
+    the card, bit for bit."""
+    import functools
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.trace import Trace, load_trace
+    from repro_torch.core.tuner import _microbench_trace
+    from repro_torch.sim import api
+
+    out = {}
+    good = api.Scenario(name="good", trace=functools.partial(
+        _microbench_trace, phase4_rs.record(fm_frac=1.0).result.configs[1],
+        4, 20_000))
+    with tempfile.TemporaryDirectory() as tmp:
+        missing = str(Path(tmp) / "no_such_trace.npz")
+        cases = {
+            "raises": ([good, api.Scenario(name="unreadable",
+                                           trace=functools.partial(load_trace, missing))],
+                       r"'unreadable' failed in a fan-out worker", 300.0),
+            # first, so its wait starts with the workers
+            "hangs": ([api.Scenario(name="hung", trace=functools.partial(time.sleep, 3600)),
+                       good], r"'hung' did not finish", HANG_TIMEOUT_S),
+        }
+        for case, (scenarios, want, timeout) in cases.items():
+            t = time.perf_counter()
+            err = None
+            try:
+                api.run(api.Experiment(name=f"failure[{case}]", scenarios=scenarios,
+                                       fm_fracs=(0.5,)),
+                        parallelism=2, scenario_timeout=timeout)
+            except api.ScenarioExecutionError as e:
+                err = str(e)
+            check(err is not None and re.search(want, err) is not None,
+                  f"failures ({case}): want ScenarioExecutionError /{want}/, got {err!r}")
+            out[case] = {"s": time.perf_counter() - t, "error": err.splitlines()[0]}
+    deadline = time.perf_counter() + 60.0
+    while multiprocessing.active_children() and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    check(not multiprocessing.active_children(), "failures: a worker process was left")
+    first = Trace(name=trace.name, rss_pages=trace.rss_pages, intervals=trace.intervals[:1],
+                  num_threads=trace.num_threads, slow_pages=trace.slow_pages)
+    t = time.perf_counter()
+    rs = api.run(api.Experiment(name="after_failures", scenarios=[api.Scenario(trace=first)],
+                                fm_fracs=SWEEP_FRACS, collect_configs=True))
+    torch.cuda.synchronize()
+    out["sweep_after_s"] = time.perf_counter() - t
+    same = all(
+        a.result.interval_times[0] == b.result.interval_times[0]
+        and asdict(a.result.configs[0]) == asdict(b.result.configs[0])
+        and asdict(a.result.costs[0]) == asdict(b.result.costs[0])
+        for a, b in zip(rs.runs, phase4_rs.runs))
+    check(rs.spec["device"] == str(dev) and len(rs.runs) == len(phase4_rs.runs) and same,
+          "failures: the sweep after them differs from phase 4's first interval")
+    return out
+
+
+def experiment_api(dev, card: str, phase4: dict, paper: dict, runsets: dict) -> dict:
+    """Phase 13: (a) the registry, (b) the fanned-out database build, (c)
+    the cache, (d) JSON round trips, (e) failures in workers."""
+    from repro_torch.kernels.victim_partition import victim_partition
+
+    out = {"card": card, "seconds": {}}
+    t = time.perf_counter()
+    victim_partition.launches = 0
+    out["registry"] = registry_checks(dev, paper["traces"]["bfs"])
+    out["seconds"]["registry_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["fanout_build"] = fanout_build(dev, paper["configs"], paper["db"],
+                                       paper["seconds"]["build_database_s"])
+    out["seconds"]["fanout_build_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["cache"] = cache_checks(dev, phase4["profile"], phase4["runsets"][0])
+    out["seconds"]["cache_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["json"] = json_round_trips(runsets)
+    out["seconds"]["json_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["failures"] = failure_checks(dev, phase4["profile"].scenarios[0].trace,
+                                     phase4["runsets"][0])
+    out["seconds"]["failures_s"] = time.perf_counter() - t
+    # this process's launches (registry, cache miss, the sweep after the
+    # failures) and the fan-out workers'
+    out["victim_partition_launches"] = (
+        victim_partition.launches
+        + out["fanout_build"]["victim_partition_launches_in_workers"])
+    check(out["victim_partition_launches"] > 0, "phase 13 never launched victim_partition")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch is missing next to this script; "
@@ -3704,6 +4141,7 @@ def main() -> int:
     t = time.perf_counter()
     paper = paper_experiment(dev)
     paper_db, paper_traces = paper.pop("db"), paper.pop("traces")
+    paper_configs, paper_runsets = paper.pop("configs"), paper.pop("runsets")
     log(f"== 10 the paper's experiment (Figs. 3-7, tau = {PAPER_TAU}) on the "
         f"card, CPU lane == CUDA lane, in {time.perf_counter() - t:.2f} s")
     for name, row in paper["rows"].items():
@@ -3721,6 +4159,7 @@ def main() -> int:
     ff = faults_and_fleets(dev, paper_db, paper_traces["thrash"], capture["trace"],
                            summary["profile_sweep_split"])
     ff["seconds"]["phase_s"] = time.perf_counter() - t
+    ff_runsets = ff.pop("runsets")
     log(f"== 11 the fault model and the fleet on the card, CPU lane == CUDA "
         f"lane, in {ff['seconds']['phase_s']:.2f} s")
     for level, rows in ff["fault_rows"].items():
@@ -3741,6 +4180,7 @@ def main() -> int:
     t = time.perf_counter()
     tm = timing_phase(dev, paper_traces, capture.pop("trace"))
     tm["seconds"]["phase_s"] = time.perf_counter() - t
+    tm_runsets = tm["fidelity"].pop("runsets")
     log(f"== 12 the per-size engine, runners and the timing engine on the card, "
         f"in {tm['seconds']['phase_s']:.2f} s")
     log("   (a) timing_replay == replay_ref, bit for bit: "
@@ -3763,6 +4203,21 @@ def main() -> int:
     log(f"   launches: timing_replay {tm['launches_timing_replay']} (fidelity), "
         f"victim_partition {tm['launches_fidelity']} (fidelity), "
         f"{tm['launches_fig1']} (fig1); seconds " + json.dumps(tm["seconds"]))
+
+    t = time.perf_counter()
+    api13 = experiment_api(
+        dev, card, capture,
+        {"traces": paper_traces, "configs": paper_configs, "db": paper_db,
+         "seconds": paper["seconds"]},
+        {"4": capture["runsets"], "10": paper_runsets, "11": ff_runsets,
+         "12": tm_runsets})
+    api13["seconds"]["phase_s"] = time.perf_counter() - t
+    log(f"== 13 the experiment API on the card ({card}) in "
+        f"{api13['seconds']['phase_s']:.2f} s")
+    for part in ("registry", "fanout_build", "cache", "json", "failures"):
+        log(f"   {part}: " + json.dumps(api13[part]))
+    log(f"   victim_partition launches {api13['victim_partition_launches']}; seconds "
+        + json.dumps(api13["seconds"]))
 
     promote = mig["promote"]
     kernels = [{
@@ -3789,6 +4244,7 @@ def main() -> int:
         "launches_fig1": tm["launches_fig1"],
         "launches_fig1_full": tm["fig1_full"]["victim_partition_launches"],
         "launches_fidelity": tm["launches_fidelity"],
+        "launches_experiment_api": api13["victim_partition_launches"],
     }, {
         "name": "migrate_pages",
         "route": "cuda",

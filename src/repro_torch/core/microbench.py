@@ -43,6 +43,16 @@ class MicrobenchSpec:
     tail_pages: int = 0
     tail_touches: int = 1
 
+    @property
+    def touched_per_interval(self) -> int:
+        return self.np_fast + self.np_slow + 2 * self.pm_pr
+
+    def accesses_per_interval(self) -> tuple[int, int]:
+        """(pacc_f, pacc_s) this spec should reproduce at the reference size."""
+        pacc_f = self.np_fast * self.hot_thr + self.pm_de * 1
+        pacc_s = self.np_slow * (self.hot_thr - 1) + self.pm_pr * self.hot_thr
+        return pacc_f, pacc_s
+
 
 def spec_from_config(cv: ConfigVector) -> MicrobenchSpec:
     """Invert Eqs. 1–4: configuration vector → micro-benchmark layout."""

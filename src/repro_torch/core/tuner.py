@@ -24,7 +24,7 @@ from __future__ import annotations
 import functools
 import warnings
 from dataclasses import dataclass, field
-from typing import Iterable, Sequence
+from typing import Callable, Iterable, Sequence
 
 import numpy as np
 
@@ -293,8 +293,12 @@ def scale_config(cv: ConfigVector, max_rss_pages: int) -> ConfigVector:
 def _microbench_trace(
     cv: ConfigVector, n_intervals: int, max_rss_pages: int
 ) -> Trace:
-    """Scenario trace factory for one database record's micro-benchmark
-    (generated lazily, inside the run)."""
+    """Scenario trace factory for one database record's micro-benchmark.
+
+    Module-level so :func:`repro_torch.sim.api.run`'s process fan-out can
+    pickle ``functools.partial(_microbench_trace, cv, ...)``: the trace is
+    generated inside the worker instead of being shipped to it.
+    """
     return generate_microbench(
         scale_config(cv, max_rss_pages), n_intervals=n_intervals
     )
@@ -302,27 +306,52 @@ def _microbench_trace(
 
 def build_database(
     configs: Iterable[ConfigVector],
+    run_microbench: Callable[[Trace, float], float] | None = None,
     fm_fracs: Sequence[float] | None = None,
     n_intervals: int = 20,
     max_rss_pages: int = 20_000,
+    workers: int | None = None,
     device=None,
 ) -> PerfDB:
     """Offline: populate the performance database.
 
-    The whole build is **one declarative experiment** executed through
-    :func:`repro_torch.sim.api.run` on ``device`` (``None`` = the card):
-    one :class:`~repro_torch.sim.api.Scenario` per configuration (lazy
+    By default (``run_microbench=None``) the whole build is **one
+    declarative experiment** executed through :func:`repro_torch.sim.api.run`
+    on ``device`` (``None`` = the card): one
+    :class:`~repro_torch.sim.api.Scenario` per configuration (lazy
     micro-benchmark trace factory, ``fast_only_at_full`` for the
     NP_slow = 0 baseline variant at full size — paper Section 3.2/3.3)
     against the shared fm-size vector, each record's curve one batched
-    sweep pass. Record times are identical to the JAX package's
-    :func:`repro.core.tuner.build_database` on the same configurations.
+    sweep pass. Scenarios fan out across processes (``workers``, run's
+    ``parallelism``: ``None`` = serial below 12 configs, else one worker
+    per core). Record times are identical to the JAX package's
+    :func:`repro.core.tuner.build_database` on the same configurations,
+    whatever ``workers``.
+
+    A ``run_microbench(trace, fm_frac)`` callable can be injected as the
+    execution backend instead (it runs the micro-benchmark trace with the
+    fast tier sized at ``fm_frac`` of the trace's RSS and returns the
+    execution time); it runs serially, one (config, size) pair at a time,
+    and ``device`` and ``workers`` are not used.
     """
     if fm_fracs is None:
         fm_fracs = np.round(np.arange(1.0, 0.099, -0.02), 3)
     fm_fracs = np.asarray(fm_fracs, dtype=np.float64)
     configs = list(configs)
     db = PerfDB()
+    if run_microbench is not None:
+        for cv in configs:
+            # index on the raw vector; benchmark the scaled-down equivalent
+            trace = _microbench_trace(cv, n_intervals, max_rss_pages)
+            times = np.empty(fm_fracs.shape, dtype=np.float64)
+            for i, f in enumerate(fm_fracs):
+                if f >= 1.0 - 1e-9:
+                    times[i] = run_microbench(trace.fast_only(), 1.0)
+                else:
+                    times[i] = run_microbench(trace, float(f))
+            db.add(PerfRecord(config=cv, fm_fracs=fm_fracs, times=times))
+        db.build()
+        return db
     if not configs:
         db.build()
         return db
@@ -347,6 +376,7 @@ def build_database(
             fm_fracs=fm_fracs,
             policies=[PolicySpec()],
         ),
+        parallelism=workers,
         device=device,
     )
     for name, cv in zip(scenario_names, configs):

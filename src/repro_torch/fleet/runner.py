@@ -22,6 +22,7 @@ from repro_torch.fleet.arbiter import FleetTunaArbiter
 from repro_torch.fleet.scenario import FleetScenario
 from repro_torch.sim.faults import FaultInjector
 from repro_torch.sim.torch_engine import _sweep_run_torch
+from repro_torch.tiering.policy import device_kind
 
 
 def merge_tenant_traces(
@@ -172,10 +173,10 @@ def run_fleet_scenario(
     records: list = []
     chunked = 0
     for spec in policies:
-        if not spec.policy_cls.batchable:
+        if device_kind(spec.policy_cls) is None:
             raise ValueError(
-                f"fleet scenarios need batchable policies; "
-                f"{spec.kind!r} is not"
+                f"fleet scenarios need policies the device step replicates; "
+                f"{spec.kind!r} is not one"
             )
         for f in _spec_fracs(spec, fm_fracs):
             f = float(f)

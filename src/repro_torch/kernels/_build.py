@@ -9,7 +9,10 @@ The libraries go into ``src/repro_torch/_build/`` (listed in
 ``.gitignore``), named by a digest of the source, the shared headers and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
 :func:`build` starts one ``nvcc`` for each source that needs it, all at
-once, and waits for them together.
+once, and waits for them together. Processes may build at the same time
+(the fan-out's workers): each compiles into a temporary file of its own,
+publishes it with an atomic rename, and removes only libraries of other
+digests, so a path :func:`build` returns exists.
 """
 
 from __future__ import annotations
@@ -93,8 +96,11 @@ def build(names=None) -> dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        # other hashes only: ``out`` may be the library another process
+        # has just published, and a loader may be opening it
         for stale in BUILD_DIR.glob(f"lib{name}-*.so"):
-            stale.unlink()
+            if stale != out:
+                stale.unlink(missing_ok=True)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

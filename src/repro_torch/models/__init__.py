@@ -11,6 +11,7 @@ from repro_torch.models.transformer import (
     init_model,
     param_count,
     prefill,
+    prefill_stepwise,
 )
 
 __all__ = [
@@ -21,4 +22,5 @@ __all__ = [
     "init_model",
     "param_count",
     "prefill",
+    "prefill_stepwise",
 ]

@@ -12,10 +12,12 @@ updated in place.
   and WKV6 kernels; returns (logits, aux loss).
 * :func:`decode_step` -- one token against the decode state made by
   :func:`init_decode_state`.
-* :func:`prefill` -- fills the decode state from a prompt by a loop of
-  decode steps and returns the last step's logits. The JAX ``prefill`` also
-  runs a full ``forward`` whose logits it throws away (XLA drops it under
-  ``jit``); the port does not run it.
+* :func:`prefill` -- fills the decode state from a prompt by one
+  ``forward`` that writes each block's keys, values, last mix inputs and
+  final WKV state, and returns the last position's logits. The JAX
+  ``prefill`` runs a full ``forward``, throws its logits away and fills the
+  state by a scan of decode steps; :func:`prefill_stepwise` is that loop,
+  kept as the oracle.
 
 Not ported yet (later slices): MLA, MoE, Mamba, the encoder and
 cross-attention, VLM ``extra_embeds``, ``remat`` and the int8 KV cache;
@@ -126,24 +128,41 @@ def forward(params, cfg: ModelConfig, tokens, extra_embeds=None, frames=None,
         )
     if remat != "none":
         raise NotImplementedError("remat comes with the training slice of the port")
+    logits = _forward(params, cfg, tokens)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def _forward(params, cfg: ModelConfig, tokens, state=None):
+    """The blocks over ``tokens`` (B, S); logits (B, S, V). With ``state``
+    (a decode state of at least S positions), each block also writes what
+    the decode steps would leave there after the S tokens: the keys and
+    values at positions 0 .. S-1, the time and channel mixes' last inputs
+    and the final WKV state."""
     with torch.inference_mode():
         x = _embed(params, cfg, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         rope = L.rope_tables(positions, cfg)
-        for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+        for layer, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
+            g, i = divmod(layer, cfg.group_size)
             h = L.norm_apply(lp["ln1"], x, cfg)
             if kind == "attn":
-                a, _ = L.attn_apply(lp["mix"], h, cfg, rope)
+                a, (k, v) = L.attn_apply(lp["mix"], h, cfg, rope)
+                if state is not None:
+                    state[f"b{i}_k"][g, :, :S] = k
+                    state[f"b{i}_v"][g, :, :S] = v
                 x = x + a
                 x = x + L.mlp_apply(lp["ffn"], L.norm_apply(lp["ln2"], x, cfg), cfg)
             else:
-                t, _ = L.rwkv_time_mix(lp["mix"], h, cfg)
+                t, (tm_x, wkv) = L.rwkv_time_mix(lp["mix"], h, cfg)
                 x = x + t
-                c, _ = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+                c, cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg), cfg)
                 x = x + c
-        logits = _head(params, cfg, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+                if state is not None:
+                    state[f"b{i}_tm_x"][g] = tm_x
+                    state[f"b{i}_wkv"][g] = wkv
+                    state[f"b{i}_cm_x"][g] = cm_x
+        return _head(params, cfg, x)
 
 
 # ------------------------------------------------------------------- decode
@@ -205,15 +224,34 @@ def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
     return logits, state
 
 
-def prefill(params, cfg: ModelConfig, tokens, state, extra_embeds=None, frames=None):
-    """Fill ``state`` from the prompt ``tokens`` (B, S >= 1) by S decode
-    steps; returns (the last step's logits (B, 1, V), state)."""
+def _check_prompt(tokens, extra_embeds, frames) -> None:
     if extra_embeds is not None or frames is not None:
         raise NotImplementedError(
             "VLM extra_embeds and audio frames come with a later slice of the port"
         )
     if tokens.shape[1] < 1:
         raise ValueError("prefill needs at least one prompt token")
+
+
+def prefill(params, cfg: ModelConfig, tokens, state, extra_embeds=None, frames=None):
+    """Fill ``state`` from the prompt ``tokens`` (B, S >= 1) by one forward
+    (the flash-attention / WKV6 kernels on the card), which writes each
+    block's keys, values, last mix inputs and final WKV state into it;
+    returns (the last position's logits (B, 1, V), state).
+    :func:`prefill_stepwise` is the same fill by S decode steps."""
+    check_supported(cfg)
+    _check_prompt(tokens, extra_embeds, frames)
+    logits = _forward(params, cfg, tokens, state=state)
+    return logits[:, -1:], state
+
+
+def prefill_stepwise(params, cfg: ModelConfig, tokens, state, extra_embeds=None,
+                     frames=None):
+    """The decode-loop fill: ``state`` from ``tokens`` (B, S >= 1) by S
+    decode steps, as the JAX ``prefill`` scans them; returns (the last
+    step's logits (B, 1, V), state). The oracle :func:`prefill` is held
+    against; one decode step a token, so slow on long prompts."""
+    _check_prompt(tokens, extra_embeds, frames)
     logits = None
     for t in range(tokens.shape[1]):
         logits, state = decode_step(params, cfg, state, tokens[:, t:t + 1], t)

@@ -8,8 +8,9 @@ policy's candidate filter (admission, or the thrash guard's ping-pong
 backoff with its per-size state on the device), the TPP promote/reclaim
 schedule of every size, per-size victim selection over
 the shared demotion ranking (the ``victim_partition`` CUDA kernel), and
-the promote/demote commit. The first-touch kind (``policy.migrates`` is
-False) stops after allocation and classification: no candidate pass,
+the promote/demote commit. The policy's class must be one of the four
+kinds the step replicates (:func:`repro_torch.tiering.policy.device_kind`);
+the first-touch kind stops after allocation and classification: no candidate pass,
 schedule, victim selection or commit, as the JAX package's
 ``FirstTouchPolicy.step`` returns an empty outcome with reclaim off. The tier state of all sizes is one stacked
 ``[n_sizes, rss]`` int8 tensor on the device; the host keeps only what the
@@ -66,7 +67,7 @@ from repro_torch.tiering.page_pool import (
     _bulk_schedule_batch,
     _resolve_step_victims,
 )
-from repro_torch.tiering.policy import PolicyOutcome
+from repro_torch.tiering.policy import PolicyOutcome, device_kind
 
 _FAST = int(Tier.FAST)
 _SLOW = int(Tier.SLOW)
@@ -88,10 +89,13 @@ def _require_torch_runnable(trace, policy, faults) -> None:
             "the policy's fault_injector must be the injector passed to the "
             "sweep as faults (the device step keys both on one cursor)"
         )
-    if not getattr(policy, "batchable", False):
+    if device_kind(type(policy)) is None:
         raise ValueError(
-            f"policy kind '{policy.kind}' is not batchable; the torch sweep "
-            "replicates the registered kinds only"
+            f"policy class {type(policy).__qualname__} (kind "
+            f"{policy.kind!r}) is not one the device step replicates: it "
+            "makes the decisions of tpp, admission, thrash_guard and "
+            "first_touch only, and never calls a subclass's hooks; run it "
+            "on the per-size engine (repro_torch.sim.api.run routes it there)"
         )
     for i, ia in enumerate(trace):
         if ia.pages.size and np.unique(ia.pages).size != ia.pages.size:
@@ -190,11 +194,12 @@ def _sweep_run_torch(
     num_pages = int(trace.rss_pages)
     cap = int(hw_capacity_pages or trace.rss_pages)
     hot_thr = policy.hot_thr
-    admit_margin = getattr(policy, "admit_margin", None)
-    reuse_window = getattr(policy, "reuse_window", None)
+    kind = device_kind(type(policy))
+    admit_margin = policy.admit_margin if kind == "admission" else None
+    reuse_window = policy.reuse_window if kind == "thrash_guard" else None
     promote_batch = getattr(policy, "promote_batch", None)
     # the first-touch kind: allocation, classification and cost only
-    migrates = getattr(policy, "migrates", True)
+    migrates = kind != "first_touch"
     fleet = page_owner is not None
     caps = (
         np.asarray(slice_caps, dtype=np.int64)

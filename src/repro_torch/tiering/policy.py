@@ -19,9 +19,17 @@ Two engines run these policies:
   the trace-pure admission criterion, the thrash guard's per-size
   ping-pong backoff, and first touch (no migration, no reclaim).
 
-``batchable`` says whether the device step runs a kind: all four do in the
-port (the JAX package's numpy sweep did not take ``first_touch``, which ran
-per size there).
+The registry: :func:`register_policy` adds a class under its ``kind`` (no
+silent shadowing), :func:`resolve_policy` looks one up. A plug-in backend
+subclasses :class:`TPPPolicy` and overrides :meth:`TPPPolicy._admit` /
+:meth:`TPPPolicy._note_step`, as in the JAX package. The device step does
+not call those hooks: it replicates the four built-in kinds only.
+:func:`device_kind` says which of them a class is, by the identity of its
+``step``, ``step_hot_sorted``, ``_admit`` and ``_note_step`` functions (not
+by a flag a subclass would inherit), and :func:`repro_torch.sim.api.run`
+sends every other class to the per-size engine, which calls the hooks.
+``batchable = False`` opts a class out of the device step as well (the
+port's ``first_touch`` is batchable; the JAX package's ran per size).
 
 Chunked-loop telemetry: every policy instance counts executions of the
 per-chunk loop in :attr:`MigrationPolicy.chunked_steps`; the bulk path
@@ -38,6 +46,41 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.tiering.page_pool import Tier
+
+# kind -> MigrationPolicy subclass; populated by @register_policy.
+POLICIES: dict[str, type] = {}
+
+
+def register_policy(cls):
+    """Class decorator: add ``cls`` to :data:`POLICIES` under its
+    ``kind``. Re-registering the same class is a no-op; a different class
+    under a taken kind is an error (no silent shadowing)."""
+    kind = getattr(cls, "kind", None)
+    if not isinstance(kind, str) or not kind:
+        raise ValueError(
+            f"{cls.__qualname__} needs a non-empty string `kind` class "
+            "attribute to be registered"
+        )
+    prev = POLICIES.get(kind)
+    if prev is not None and prev is not cls:
+        raise ValueError(
+            f"policy kind {kind!r} is already registered by "
+            f"{prev.__qualname__}"
+        )
+    POLICIES[kind] = cls
+    return cls
+
+
+def resolve_policy(kind: str) -> type:
+    """The registered policy class for ``kind``; an unknown kind raises
+    ``ValueError`` listing the registered ones."""
+    try:
+        return POLICIES[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown policy kind {kind!r}; registered kinds: "
+            f"{', '.join(sorted(POLICIES))}"
+        ) from None
 
 
 @dataclass
@@ -58,7 +101,8 @@ class MigrationPolicy:
     """Per-interval page-management policy (the plug-in protocol).
 
     ``kind`` is the registry name, ``migrates`` whether the policy moves
-    pages at all, ``batchable`` whether the device sweep step runs it,
+    pages at all, ``batchable`` whether the device sweep step may run it
+    (it runs only what :func:`device_kind` names),
     ``tunable`` whether a Tuna tuner may run in the loop with it.
     ``fault_injector`` is the :class:`repro_torch.sim.faults.FaultInjector`
     an engine attaches for fault-injected runs (``None`` keeps the
@@ -80,6 +124,7 @@ class MigrationPolicy:
         raise NotImplementedError
 
 
+@register_policy
 class TPPPolicy(MigrationPolicy):
     """Hot-threshold promotion + watermark demotion (the paper's TPP).
 
@@ -88,7 +133,8 @@ class TPPPolicy(MigrationPolicy):
     interval (``None`` = unbounded). Subclasses override :meth:`_admit`
     (filter the hottest-first candidates before scheduling) and
     :meth:`_note_step` (observe the outcome); the device step replicates
-    the built-in kinds' hooks itself.
+    the built-in kinds' hooks itself, so a subclass that overrides one runs
+    on the per-size engine (:func:`device_kind`).
     """
 
     kind = "tpp"
@@ -199,6 +245,7 @@ def _effective_heat(pool, pages: np.ndarray) -> np.ndarray:
     return pool.heat_of(pages) * pool.decay + pool.interval_touch[pages]
 
 
+@register_policy
 class AdmissionTPPPolicy(TPPPolicy):
     """TPP with TierBPF-style migration admission control: a candidate is
     promoted only when its effective heat (decayed history + this
@@ -239,6 +286,7 @@ class _GuardState:
         self.cooldown = 0  # remaining backoff steps
 
 
+@register_policy
 class ThrashGuardPolicy(TPPPolicy):
     """TPP with a Jenga-style thrash guard.
 
@@ -306,6 +354,7 @@ class ThrashGuardPolicy(TPPPolicy):
         st.t += 1
 
 
+@register_policy
 class FirstTouchPolicy(MigrationPolicy):
     """NUMA first-touch with no migration (the paper's Fig. 1 baseline).
 
@@ -325,20 +374,25 @@ class FirstTouchPolicy(MigrationPolicy):
         return PolicyOutcome()
 
 
-# kind -> policy class
-POLICIES: dict[str, type] = {
-    cls.kind: cls
-    for cls in (TPPPolicy, AdmissionTPPPolicy, ThrashGuardPolicy, FirstTouchPolicy)
-}
+# the kinds the device step replicates, and the functions that define them
+_DEVICE_KINDS = (TPPPolicy, AdmissionTPPPolicy, ThrashGuardPolicy, FirstTouchPolicy)
+_HOOKS = ("step", "step_hot_sorted", "_admit", "_note_step")
 
 
-def resolve_policy(kind: str) -> type:
-    """The policy class for ``kind``; an unknown kind raises ``ValueError``
-    listing the registered ones."""
-    try:
-        return POLICIES[kind]
-    except KeyError:
-        raise ValueError(
-            f"unknown policy kind {kind!r}; registered kinds: "
-            f"{', '.join(sorted(POLICIES))}"
-        ) from None
+def device_kind(cls) -> str | None:
+    """The built-in kind whose decisions the device sweep step makes for
+    policy class ``cls``, or ``None`` when it makes none of them.
+
+    A class is replicated when its ``step``, ``step_hot_sorted``,
+    ``_admit`` and ``_note_step`` are the very functions of one of the
+    four kinds (a subclass that overrides nothing, whatever its ``kind``
+    or parameters), and it does not opt out with ``batchable = False``.
+    A subclass that overrides a hook is refused whatever flags it
+    inherits.
+    """
+    if not getattr(cls, "batchable", False):
+        return None
+    for base in _DEVICE_KINDS:
+        if all(getattr(cls, h, None) is getattr(base, h, None) for h in _HOOKS):
+            return base.kind
+    return None

@@ -57,6 +57,10 @@ class TimedInterval:
     bytes_fast: int  # application bytes served by the fast tier
     bytes_slow: int  # application bytes served by the slow tier
 
+    @property
+    def t_mem(self) -> float:
+        return self.t_app
+
 
 @dataclass
 class EventStream:

@@ -63,6 +63,29 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _loaded_forbidden(scenario, fm_frac, spec, db):
+    """A custom runner: which forbidden packages its process has loaded."""
+    return {"pid": os.getpid(),
+            "forbidden": sorted(m for m in sys.modules if _forbidden(m))}
+
+
+def test_spawned_fanout_workers_load_neither_jax_nor_repro():
+    """The experiment API's spawned workers import the port alone: the job
+    (the port's specs, the policy classes, this runner) pulls in nothing
+    of JAX or the JAX package."""
+    from repro_torch.sim import api
+
+    rs = api.run(
+        api.Experiment(scenarios=[api.Scenario(name=f"s{i}", runner=_loaded_forbidden)
+                                  for i in range(2)]),
+        parallelism=2, mp_start_method="spawn", scenario_timeout=120.0, device="cpu",
+    )
+    assert rs.fanout is not None
+    for payload in rs.results():
+        assert payload["pid"] != os.getpid()
+        assert payload["forbidden"] == []
+
+
 # TUNA010 for the port: the timing engine measures the interval cost model,
 # so it is built of none of the engines that run it, and its replays are
 # seeded, never timed by a wall clock

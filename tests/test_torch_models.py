@@ -185,9 +185,44 @@ def test_prefill_matches_jax_and_forward(name):
     assert plast.shape == (B, 1, jcfg.vocab_size)
     np.testing.assert_allclose(_np(plast), _np(jlast), **TIGHT)
     _assert_state_close(js, ps, TIGHT)
-    # the decode loop's last logits are the forward's last position
+    # the last logits are the forward's last position
     pl, _ = pm.forward(pp, pcfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(_np(plast[:, 0]), _np(pl[:, -1]), **TIGHT)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_prefill_from_one_forward_matches_decode_loop(name):
+    """``prefill`` writes the state from one forward; ``prefill_stepwise``
+    (one decode step a token, the JAX ``prefill``'s scan) is its oracle:
+    logits and every state entry within 1e-4 in float32, and decoding on
+    from either state gives the same logits."""
+    _, pcfg, _, pp = _pair(name, **F32)
+    toks = torch.from_numpy(_tokens(pcfg, seed=6)).long()
+    last, st = pm.prefill(pp, pcfg, toks, pm.init_decode_state(pcfg, B, MAX_LEN, device="cpu"))
+    olast, ost = pm.prefill_stepwise(pp, pcfg, toks,
+                                     pm.init_decode_state(pcfg, B, MAX_LEN, device="cpu"))
+    np.testing.assert_allclose(_np(last), _np(olast), **TIGHT)
+    _assert_state_close(ost, st, TIGHT)
+    nxt = toks[:, :1]
+    for t in range(S, S + 3):
+        pl, st = pm.decode_step(pp, pcfg, st, nxt, t)
+        ol, ost = pm.decode_step(pp, pcfg, ost, nxt, t)
+        np.testing.assert_allclose(_np(pl), _np(ol), **TIGHT)
+        nxt = ol[:, -1].argmax(-1, keepdim=True)
+    _assert_state_close(ost, st, TIGHT)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_bf16_decode_loop_prefill_matches_jax(name):
+    """The oracle itself in bfloat16: the decode-loop fill against the JAX
+    ``prefill``, logits and state, at the bfloat16 tolerance."""
+    jcfg, pcfg, jp, pp = _pair(name)
+    toks = _tokens(jcfg, seed=7)
+    jlast, js = jm.prefill(jp, jcfg, jnp.asarray(toks), jm.init_decode_state(jcfg, B, S))
+    plast, ps = pm.prefill_stepwise(pp, pcfg, torch.from_numpy(toks).long(),
+                                    pm.init_decode_state(pcfg, B, S, device="cpu"))
+    np.testing.assert_allclose(_np(plast), _np(jlast), **BF16)
+    _assert_state_close(js, ps, BF16)
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -219,10 +254,11 @@ def test_bf16_forward_and_prefill_match_jax(name):
     pl, _ = pm.forward(pp, pcfg, torch.from_numpy(toks).long())
     assert pl.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(pl), _np(jl), **BF16)
-    jlast, _ = jm.prefill(jp, jcfg, jnp.asarray(toks), jm.init_decode_state(jcfg, B, S))
-    plast, _ = pm.prefill(pp, pcfg, torch.from_numpy(toks).long(),
-                          pm.init_decode_state(pcfg, B, S, device="cpu"))
+    jlast, js = jm.prefill(jp, jcfg, jnp.asarray(toks), jm.init_decode_state(jcfg, B, S))
+    plast, ps = pm.prefill(pp, pcfg, torch.from_numpy(toks).long(),
+                           pm.init_decode_state(pcfg, B, S, device="cpu"))
     np.testing.assert_allclose(_np(plast), _np(jlast), **BF16)
+    _assert_state_close(js, ps, BF16)
 
 
 # ------------------------------------------------------------ layer options
