@@ -27,7 +27,13 @@ Phases, each of which must pass (any failure exits non-zero):
    split over blocks, 10 bit-identical repeats) in bfloat16 and float32
    within stated tolerances; ``strided_probe`` also at page rows of 1,000
    and 1,001 floats, a pool base one float past alignment, page counts
-   around its grid, one page, and 20 bit-identical repeats;
+   around its grid, one page, and 20 bit-identical repeats; the backward
+   kernels ``flash_attention_bwd`` (causal and not, T > S, GQA ratios 1, 2
+   and 4, ragged tails at 1,000 and 2,047 tokens, head sizes 64 and 128,
+   rows that see no key) and ``wkv6_bwd`` (S from 1 to 2,048, decays near 0
+   and near 1, every head size, a final-state gradient given and not)
+   against autograd of their plain versions in bfloat16 and float32, and
+   10 bit-identical repeats each;
 3. the CPU lane == the CUDA lane, bit for bit: the sweep through ``run``
    (an untuned sweep, a tuned shrink and an untuned ``thrash_guard`` sweep
    over four sizes, whose guard must suppress candidates), and the tiered serving loop at
@@ -36,7 +42,8 @@ Phases, each of which must pass (any failure exits non-zero):
    Qwen3-1.7B and RWKV6-3B at full width and 2 layers in float32, the same
    weights on both (forward logits, a short prefill's logits and state)
    within a stated tolerance, and on each lane that prefill (one forward)
-   against the decode loop within it too;
+   against the decode loop within it too; one training step of each there
+   (loss, the gradients' global norm, the update) within a stated tolerance;
 4. the sweep's main path at full size through the entry points a user
    calls (``repro_torch.sim.api.run``, ``build_database``), with the
    ``victim_partition`` count set to 0 just before and read just after;
@@ -155,7 +162,23 @@ Phases, each of which must pass (any failure exits non-zero):
     trace factory that raises in a worker and a scenario that hangs past
     ``scenario_timeout`` each raise ``ScenarioExecutionError`` naming the
     scenario, no worker is left, and a sweep on the card then gives phase
-    4's first interval bit for bit.
+    4's first interval bit for bit;
+14. training on the card through ``repro_torch.launch.trainer.train``: (a)
+    Qwen3-1.7B and (b) RWKV6-3B at full width and depth, 6 steps of 4 x
+    2,048 tokens, ``remat="full"``, a transient failure injected at step 2,
+    with the ``flash_attention`` / ``wkv6`` and backward counts set to 0
+    just before and read just after (2 forward launches and 1 backward a
+    layer a step), then one step under the profiler; at full width and 2
+    layers, one step's gradients through the kernels against the plain
+    versions' within twice the plain bfloat16 gradients' distance from the
+    plain float32 ones, and (c) remat ``none``, ``dots`` and ``full``
+    giving the same gradients bit for bit; (d) Qwen3-1.7B at full width and
+    2 layers interrupted after 2 steps and resumed from its
+    ``CheckpointManager`` checkpoint to the uninterrupted run's losses bit
+    for bit (the checkpoint's bytes, restore and save seconds); (e) both
+    backward kernels timed on the first layer's training inputs beside
+    autograd of their plain versions, their bounds and, for attention, the
+    backward of ``scaled_dot_product_attention``.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -167,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -229,6 +253,12 @@ MODEL_PATH_FACTOR = 2.0
 # On an H100 80GB HBM3 the logits (about 5.5) differ by 8e-6 (Qwen3-1.7B)
 # and 3.5e-4 (RWKV6-3B), so 1e-3 on rtol and atol
 LANE_LAYERS, LANE_BATCH, LANE_LEN, LANE_TOL = 2, 2, 64, 1e-3
+# One training step on both lanes at that size (phase 3): the loss, the
+# gradients' global norm and the update, relative. Other summation orders
+# again (the backward kernels against autograd of the plain versions on the
+# CPU); an element whose gradient is rounding noise may take the other sign
+# of a first Adam step on the other lane, hence the update's L2 measure.
+TRAIN_LANE_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1502,6 +1532,119 @@ def wkv6_checks(dev) -> float:
     return worst
 
 
+def flash_bwd_checks(dev) -> float:
+    """flash_attention_bwd == autograd of flash_attention_plain on the card:
+    per gradient the largest difference within 1e-4 (float32) or 1e-2
+    (bfloat16) of the gradient's largest value, in both dtypes; causal and
+    not, T > S, GQA ratios 1, 2 and 4, ragged tails at 1,000 and 2,047
+    tokens, head sizes 64 and 128, rows that see no key (their gradients
+    zeros); then one call 10 times over, bit-identical each time. The
+    kernel computes in float32 and rounds once; the plain bfloat16
+    gradients round at other points (a few 2^-8 ulps of their scale).
+    Returns the largest absolute difference."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_bwd, flash_attention_bwd_plain)
+
+    g = torch.Generator().manual_seed(41)
+    worst = 0.0
+    cases = [  # B, S, T, H, KV, hd, causal
+        (1, 1000, 1000, 16, 8, 128, True), (1, 2047, 2047, 16, 8, 128, True),
+        (2, 100, 100, 16, 8, 128, True), (1, 128, 128, 8, 2, 64, True),
+        (1, 64, 192, 8, 2, 128, False), (1, 33, 65, 2, 1, 64, True),
+        (2, 48, 20, 4, 2, 64, True), (1, 40, 40, 4, 4, 128, False),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, T, H, KV, hd, causal in cases:
+            q = torch.randn((B, S, H, hd), generator=g).to(dtype).to(dev)
+            k = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(dev)
+            v = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(dev)
+            do = torch.randn((B, S, H, hd), generator=g).to(dtype).to(dev)
+            out, lse = _launch(q, k, v, causal, with_lse=True)
+            got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_plain(q, k, v, do, causal)
+            tol = 1e-4 if dtype == torch.float32 else 1e-2
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                diff = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                worst = max(worst, diff)
+                check(a.dtype == b.dtype and diff <= tol * scale,
+                      f"flash_attention_bwd {dtype} {(B, S, T, H, KV, hd, causal)} {name}: "
+                      f"max |diff| {diff} beyond {tol} x {scale}")
+            if causal and S > T:
+                check(not bool(got[0][:, : S - T].any()),
+                      "flash_attention_bwd: rows with no key have gradients")
+    q, k, v = (torch.randn(s, generator=g).to(torch.bfloat16).to(dev)
+               for s in ((2, 2048, 16, 128), (2, 2048, 8, 128), (2, 2048, 8, 128)))
+    do = torch.randn((2, 2048, 16, 128), generator=g).to(torch.bfloat16).to(dev)
+    out, lse = _launch(q, k, v, True, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    for run in range(10):
+        again = flash_attention_bwd(q, k, v, out, lse, do)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"flash_attention_bwd run {run} of 10 differs from the first")
+    return worst
+
+
+def wkv6_bwd_checks(dev) -> float:
+    """wkv6_bwd == autograd of wkv6_plain on the card: per gradient (dr, dk,
+    dv, dw, du) the largest difference within 1e-4 (float32 r, k, v) or
+    1e-2 (bfloat16 r, k, v beside float32 w) of the gradient's largest
+    value; S from 1 to 2,048, decays near 0 (w = exp(-exp(randn + 2))) and
+    near 1 (exp(-exp(randn / 2 - 4))), every head size in HEAD_DIMS, a
+    final-state gradient given and not; then one call 10 times over,
+    bit-identical each time. Returns the largest absolute difference."""
+    import torch
+
+    from repro_torch.kernels.wkv6 import HEAD_DIMS, wkv6_bwd, wkv6_bwd_plain
+
+    g = torch.Generator().manual_seed(42)
+    worst = 0.0
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # B, S, H, hd, dtype of r, k, v, decay bias, final-state gradient
+        (2, 45, 3, 16, f32, 2.0, True), (2, 45, 3, 32, bf16, -4.0, False),
+        (2, 45, 3, 64, f32, 2.0, False), (1, 19, 2, 128, bf16, 2.0, True),
+        (1, 1, 40, 64, bf16, -4.0, False), (1, 17, 40, 64, f32, -4.0, True),
+        (1, 300, 40, 64, bf16, 2.0, True), (1, 2048, 4, 64, bf16, -4.0, False),
+        (1, 2048, 2, 64, f32, 2.0, True), (2, 70, 3, 128, f32, -4.0, False),
+    ]
+    seen = set()
+
+    def inputs(B, S, H, hd, dtype, bias, with_state):
+        r, k, v, do = ((torch.randn((B, S, H, hd), generator=g) * 0.5).to(dtype).to(dev)
+                       for _ in range(4))
+        scale = 0.5 if bias < 0 else 1.0
+        w = torch.exp(-torch.exp(torch.randn((B, S, H, hd), generator=g) * scale
+                                 + bias)).to(dev)
+        u = (torch.randn((H, hd), generator=g) * 0.3).to(dev)
+        ds = torch.randn((B, H, hd, hd), generator=g).to(dev) if with_state else None
+        return r, k, v, w, u, do, ds
+
+    for case in cases:
+        args = inputs(*case)
+        seen.add(case[3])
+        got = wkv6_bwd(*args)
+        torch.cuda.synchronize()
+        want = wkv6_bwd_plain(*args)
+        tol = 1e-4 if case[4] == f32 else 1e-2
+        for name, a, b in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+            diff = float((a.float() - b.float()).abs().max())
+            scale = float(b.float().abs().max())
+            worst = max(worst, diff)
+            check(a.dtype == b.dtype and diff <= tol * max(scale, 1e-30),
+                  f"wkv6_bwd {case}: {name} max |diff| {diff} beyond {tol} x {scale}")
+    check(seen == set(HEAD_DIMS), f"wkv6_bwd: head sizes {sorted(seen)} checked")
+    args = inputs(2, 300, 40, 64, bf16, 2.0, True)
+    first = wkv6_bwd(*args)
+    for run in range(10):
+        again = wkv6_bwd(*args)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"wkv6_bwd run {run} of 10 differs from the first")
+    return worst
+
+
 # ------------------------------------------------------------ phase 3, models
 def model_lanes_agree(dev) -> dict:
     """Each family at full width and 2 layers, in float32, the same weights
@@ -1560,6 +1703,61 @@ def model_lanes_agree(dev) -> dict:
         out[name] = {"max_abs_diff": diffs, "logits_max_abs": float(lc.abs().max()),
                      "prefill_vs_decode_loop_max_abs_diff": {"cpu": oc, "cuda": og}}
         del params, lanes
+    return out
+
+
+def train_lanes_agree(dev) -> dict:
+    """One training step of each family at full width and LANE_LAYERS
+    layers, in float32, the same weights (drawn on the CPU from a seed) and
+    batch on the CPU and on the card (``make_train_fns``' step: loss,
+    gradients through the backward kernels on the card and autograd of the
+    plain versions on the CPU, clip, AdamW). The loss and the gradients'
+    global norm within TRAIN_LANE_TOL (relative); the step's update
+    (new params - old) within TRAIN_LANE_TOL relative L2, and no element
+    moved further from the other lane's than 2 lr (a first Adam step moves
+    each weight by lr times about the gradient's sign)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import make_train_fns
+    from repro_torch.optim.adamw import from_leaves, leaves
+
+    out = {}
+    for name in MODEL_FAMILIES:
+        cfg = replace(get_config(name), num_layers=LANE_LAYERS,
+                      param_dtype="float32", compute_dtype="float32")
+        batch = SyntheticLMDataset(cfg.vocab_size, LANE_LEN, LANE_BATCH, seed=25).batch_at(0)
+        lanes = {}
+        for lane, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            fns = make_train_fns(cfg, remat="none", device=device)
+            params, state = make_train_fns(cfg, device="cpu")["init"](
+                torch.Generator().manual_seed(26))
+            if lane == "cuda":
+                params = [p.detach().to(dev).requires_grad_(True) for p in leaves(params)]
+                params = from_leaves(state["m"], params)
+                state = _to(state, dev)
+            before = [p.detach().clone() for p in leaves(params)]
+            _, _, metrics = fns["step"](params, state, batch)
+            lanes[lane] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                           [(p.detach() - b).cpu() for p, b in zip(leaves(params), before)])
+            del params, state, before
+        torch.cuda.synchronize()
+        (lc, gc, dc), (lg, gg, dg) = lanes["cpu"], lanes["cuda"]
+        num = sum(float(((a - b) ** 2).sum()) for a, b in zip(dc, dg))
+        den = sum(float((a ** 2).sum()) for a in dc)
+        worst = max(float((a - b).abs().max()) for a, b in zip(dc, dg))
+        lr1 = 3e-4 / 200  # the first step's lr: the schedule's default warm-up
+        row = {"loss": {"cpu": lc, "cuda": lg}, "grad_norm": {"cpu": gc, "cuda": gg},
+               "update_rel_l2": (num / den) ** 0.5, "update_max_abs_diff": worst}
+        check(abs(lc - lg) <= TRAIN_LANE_TOL * abs(lc)
+              and abs(gc - gg) <= TRAIN_LANE_TOL * abs(gc)
+              and row["update_rel_l2"] <= TRAIN_LANE_TOL and worst <= 2 * lr1 * 1.01,
+              f"{name}: a training step differs between the CPU and CUDA lanes: {row}")
+        out[name] = row
+        del lanes, dc, dg
     return out
 
 
@@ -4018,6 +4216,358 @@ def experiment_api(dev, card: str, phase4: dict, paper: dict, runsets: dict) -> 
     return out
 
 
+# ------------------------------------------------------------ phase 14
+# Training on the card through repro_torch.launch.trainer.train: both
+# families at full width and depth, 4 sequences of 2,048 tokens a step,
+# remat="full", a transient failure injected at step TRAIN_FAIL_AT (the
+# retry path). The kernel-vs-plain gradient check, the remat check and the
+# resume check run at full width and GRAD_LAYERS layers.
+TRAIN_BATCH, TRAIN_LEN = 4, 2048
+TRAIN_STEPS, TRAIN_FAIL_AT = 6, 2
+GRAD_LAYERS = 2
+RESUME_STEPS, RESUME_AT = 4, 2
+
+
+def _leaf_copy(params, dtype=None):
+    """A detached copy of a parameter tree (cast to ``dtype``), every
+    tensor a leaf that requires a gradient."""
+    if isinstance(params, dict):
+        return {k: _leaf_copy(v, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_leaf_copy(v, dtype) for v in params]
+    return params.detach().to(dtype or params.dtype).clone().requires_grad_(True)
+
+
+def _grads_rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over every gradient of two lists, in float64."""
+    import torch
+
+    num = sum(float(((x.double() - y.double()) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y.double() ** 2).sum()) for y in b)
+    torch.cuda.synchronize()
+    return (num / den) ** 0.5 if den else 0.0
+
+
+def train_run(name: str, dev) -> dict:
+    """(a) / (b): ``train`` at full width and depth, TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_LEN tokens, remat="full", the kernel counts set to
+    0 just before and read just after (each step must launch the forward
+    kernel twice a layer, the layer's forward and its recompute, and the
+    backward kernel once); then one step of the same model under the
+    profiler for its device time."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+    from repro_torch.launch.train import make_train_fns
+    from repro_torch.launch.trainer import train
+    from repro_torch.models import param_count
+
+    cfg = get_config(name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash_attention, flash_attention_bwd, wkv6, wkv6_bwd)
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    rep = train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
+                remat="full", seed=51, inject_failure_at=TRAIN_FAIL_AT)
+    wall_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
+    n_rwkv = sum(k == "rwkv" for k in cfg.block_pattern) * cfg.num_groups
+    want = {"flash_attention": 2 * n_attn * TRAIN_STEPS,
+            "flash_attention_bwd": n_attn * TRAIN_STEPS,
+            "wkv6": 2 * n_rwkv * TRAIN_STEPS, "wkv6_bwd": n_rwkv * TRAIN_STEPS}
+    check(launches == want, f"{name}: training launched {launches}, want {want}")
+    check(len(rep.losses) == TRAIN_STEPS and all(map(math.isfinite, rep.losses)),
+          f"{name}: training losses {rep.losses}")
+    step_s = statistics.median(rep.step_times[1:])
+
+    fns = make_train_fns(cfg, remat="full")
+    params, state = fns["init"](torch.Generator(device=dev).manual_seed(51))
+    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH, seed=51).batch_at(0)
+    fns["step"](params, state, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fns["step"](params, state, batch)
+        torch.cuda.synchronize()
+    device_ms = _device_us(prof) / 1e3
+    kernel_ms = {k: sum(e.device_time_total for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and k in e.name) / 1e3
+                 for k in ("flash_mma_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                           "wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_reduce_kernel")}
+    del prof, params, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    return {
+        "params": param_count(fns["param_shapes"]),
+        "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN, "remat": "full",
+        "losses": rep.losses, "injected_failure_at": TRAIN_FAIL_AT,
+        "step_s": rep.step_times, "median_step_s": step_s, "wall_s": wall_s,
+        "tokens_per_s": tokens / step_s,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / 1e3 / step_s,
+        "kernel_device_ms_per_step": {k: v for k, v in kernel_ms.items() if v},
+        "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "peak_memory_bytes": peak,
+    }
+
+
+def train_grads(name: str, dev, capture: dict) -> dict:
+    """At full width and GRAD_LAYERS layers: one step's gradients through
+    the kernels held against the same step's through the plain versions on
+    the card, within MODEL_PATH_FACTOR x the distance of the plain
+    bfloat16 gradients from the plain float32 ones (relative L2 over every
+    gradient); (c) remat "none", "dots" and "full" through the kernels give
+    the same gradients bit for bit. ``capture`` receives the first layer's
+    kernel inputs."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_plain)
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_plain
+    from repro_torch.launch.train import make_train_fns
+    from repro_torch.models import init_model
+    from repro_torch.optim.adamw import leaves
+
+    cfg = replace(get_config(name), num_layers=GRAD_LAYERS)
+    cfg32 = replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params = _leaf_copy(init_model(cfg, generator=torch.Generator(device=dev).manual_seed(52)))
+    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH, seed=53).batch_at(0)
+
+    def grads(p, c, remat="none", attention=flash_attention, recurrence=wkv6):
+        ops.attention, ops.wkv6 = attention, recurrence
+        try:
+            with torch.enable_grad():
+                loss = make_train_fns(c, remat=remat)["loss"](p, batch)
+                g = torch.autograd.grad(loss, leaves(p))
+        finally:
+            ops.attention, ops.wkv6 = flash_attention, wkv6
+        torch.cuda.synchronize()
+        return float(loss.detach()), g
+
+    def recording(kernel, key):
+        def call(*args, **kw):
+            if key not in capture:
+                capture[key] = [a.detach().clone() for a in args]
+            return kernel(*args, **kw)
+        return call
+
+    counters = (flash_attention, flash_attention_bwd, wkv6, wkv6_bwd)
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    loss_k, g_k = grads(params, cfg, attention=recording(flash_attention, "flash_attention"),
+                        recurrence=recording(wkv6, "wkv6"))
+    kernel_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    t = time.perf_counter()
+    loss_p, g_p = grads(params, cfg, attention=flash_attention_plain, recurrence=wkv6_plain)
+    plain_s = time.perf_counter() - t
+    loss_32, g_32 = grads(_leaf_copy(params, torch.float32), cfg32,
+                          attention=flash_attention_plain, recurrence=wkv6_plain)
+    path = _grads_rel_l2(g_k, g_p)
+    kernel_vs_f32 = _grads_rel_l2(g_k, g_32)
+    plain_vs_f32 = _grads_rel_l2(g_p, g_32)
+    del g_p, g_32
+    check(path <= MODEL_PATH_FACTOR * plain_vs_f32,
+          f"{name}: kernel-path gradients {path:.3g} from the plain path's, beyond "
+          f"{MODEL_PATH_FACTOR} x the plain bfloat16 path's {plain_vs_f32:.3g} from float32")
+    check(all(bool(torch.isfinite(g).all()) for g in g_k), f"{name}: gradients not finite")
+    remat = {}
+    for mode in ("dots", "full"):
+        loss_m, g_m = grads(params, cfg, remat=mode)
+        same = loss_m == loss_k and all(torch.equal(a, b) for a, b in zip(g_m, g_k))
+        remat[mode] = {"bit_equal_to_none": same, "max_abs_diff": max(
+            float((a.float() - b.float()).abs().max()) for a, b in zip(g_m, g_k))}
+        check(same, f"{name}: remat={mode} gradients differ from remat=none: {remat[mode]}")
+        del g_m
+    del g_k, params
+    torch.cuda.empty_cache()
+    return {"layers": GRAD_LAYERS, "loss": {"kernels": loss_k, "plain": loss_p, "f32": loss_32},
+            "grads_rel_l2": {"kernels_vs_plain": path, "kernels_vs_f32": kernel_vs_f32,
+                             "plain_vs_f32": plain_vs_f32},
+            "launches": launches, "kernel_s": kernel_s, "plain_s": plain_s,
+            "remat_vs_none": remat}
+
+
+def resume_check(dev) -> dict:
+    """(d): Qwen3-1.7B at full width and GRAD_LAYERS layers, RESUME_STEPS
+    steps uninterrupted against RESUME_AT steps with a CheckpointManager
+    checkpoint, then resumed from it to RESUME_STEPS: the same losses bit
+    for bit. The checkpoint's bytes, and the seconds of a restore onto the
+    card and of a synchronous save of the restored tree, in a temporary
+    directory removed afterwards."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_fns
+    from repro_torch.launch.trainer import train
+
+    cfg = replace(get_config("qwen3-1.7b"), num_layers=GRAD_LAYERS)
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_LEN, remat="full", seed=54)
+    full = train(cfg, steps=RESUME_STEPS, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        train(cfg, steps=RESUME_AT, ckpt_dir=d, ckpt_every=RESUME_AT, **kw)
+        resumed = train(cfg, steps=RESUME_STEPS, ckpt_dir=d, ckpt_every=10 ** 9, **kw)
+        check(resumed.resumed_from == RESUME_AT and resumed.losses == full.losses[RESUME_AT:],
+              f"resume: losses {resumed.losses} (from {resumed.resumed_from}) against "
+              f"{full.losses[RESUME_AT:]}")
+        step_dir = Path(d) / f"step_{RESUME_AT:08d}"
+        nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        fns = make_train_fns(cfg)
+        t = time.perf_counter()
+        tree, _ = load_checkpoint(d, RESUME_AT, {"params": fns["param_shapes"],
+                                                 "opt": fns["opt_shapes"]}, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        shutil.rmtree(step_dir)
+        t = time.perf_counter()
+        save_checkpoint(d, RESUME_AT, tree)
+        save_s = time.perf_counter() - t
+        del tree
+    torch.cuda.empty_cache()
+    return {"layers": GRAD_LAYERS, "losses": full.losses, "resumed_losses": resumed.losses,
+            "bit_equal": True, "checkpoint_bytes": nbytes, "restore_s": restore_s,
+            "save_s": save_s}
+
+
+def time_flash_bwd(capture: dict) -> dict:
+    """(e) flash_attention_bwd on the first Qwen3-1.7B layer's training
+    inputs, beside autograd of the plain version, the bound and the
+    backward of scaled_dot_product_attention (a yardstick only; the port
+    never calls it)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_bwd, flash_attention_bwd_plain)
+
+    q, k, v = capture["flash_attention"]
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    do = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(55),
+                     device=q.device).to(q.dtype)
+    out, lse = _launch(q, k, v, True, with_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    want = flash_attention_bwd_plain(q, k, v, do)
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    check(all(float((a.float() - b.float()).abs().max()) <= 1e-2 * float(b.float().abs().max())
+              for a, b in zip(got, want)),
+          f"flash_attention_bwd on the training inputs: max |diff| {err}")
+    del got, want
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do), repeats=10)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do), repeats=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                         repeats=10)
+    del ot, qt, kt, vt
+    # the function: 2.5 x the forward's 4 flops per (query, key, hd) pair:
+    # dV, dP, dQ and dK (2 each) and the scores once (2)
+    flops = 10 * B * H * hd * _visible_pairs(S, T, True)
+    io_bytes = ((3 * q.numel() + 2 * k.numel() + 2 * v.numel() + q.numel() + k.numel()
+                 + v.numel()) * q.element_size() + lse.numel() * 4)
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms,
+            "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, "causal": True,
+                      "dtype": str(q.dtype)},
+            "gflop": flops / 1e9, "bytes": io_bytes, "tflop_per_s": flops / ms / 1e9,
+            "registers": ptxas_registers("flash_attention_bwd")}
+
+
+def time_wkv6_bwd(capture: dict) -> dict:
+    """(e) wkv6_bwd on the first RWKV6-3B layer's training inputs, beside
+    autograd of the plain version and the bound (no PyTorch call computes
+    the recurrence's gradient)."""
+    import torch
+
+    from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_bwd_plain
+
+    r, k, v, w, u = capture["wkv6"]
+    B, S, H, hd = r.shape
+    do = torch.randn(r.shape, generator=torch.Generator(device=r.device).manual_seed(56),
+                     device=r.device).to(r.dtype)
+    got = wkv6_bwd(r, k, v, w, u, do)
+    want = wkv6_bwd_plain(r, k, v, w, u, do)
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    check(all(float((a.float() - b.float()).abs().max()) <= 1e-2 * float(b.float().abs().max())
+              for a, b in zip(got, want)),
+          f"wkv6_bwd on the training inputs: max |diff| {err}")
+    del got, want
+    ms = cuda_ms(lambda: wkv6_bwd(r, k, v, w, u, do), repeats=10)
+    plain_ms = cuda_ms(lambda: wkv6_bwd_plain(r, k, v, w, u, do), repeats=2, warmup=1)
+    # per (token, i, j): the state rebuilt (3), G (3), dw, dk, dv, dr (2 each)
+    flops = 14 * B * S * H * hd * hd
+    n = r.numel()
+    io_bytes = (n * r.element_size() * (4 + 3)  # r, k, v, do read; dr, dk, dv written
+                + n * 4 * 2 + u.numel() * 4 * 2)  # w read, dw written; u, du
+    ops_ms = flops / ALU_OPS_PER_S * 1e3
+    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "shape": {"B": B, "S": S, "H": H, "hd": hd, "rkv_dtype": str(r.dtype)},
+            "gflop": flops / 1e9, "bytes": io_bytes,
+            "registers": ptxas_registers("wkv6_bwd")}
+
+
+def training(dev) -> dict:
+    """Phase 14: (a) Qwen3-1.7B and (b) RWKV6-3B trained at full width and
+    depth, each with its gradient and remat checks (c) at GRAD_LAYERS
+    layers; (d) resume; (e) the backward kernels timed."""
+    out, seconds, capture = {"runs": {}, "grads": {}}, {}, {}
+    for name in MODEL_FAMILIES:
+        t = time.perf_counter()
+        out["runs"][name] = train_run(name, dev)
+        seconds[f"train_{name}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["grads"][name] = train_grads(name, dev, capture)
+        seconds[f"grads_{name}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["resume"] = resume_check(dev)
+    seconds["resume"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["flash_attention_bwd"] = time_flash_bwd(capture)
+    out["wkv6_bwd"] = time_wkv6_bwd(capture)
+    seconds["timing"] = time.perf_counter() - t
+    # each backward's device ms a launch, from the profiled training step
+    # (the profiler loses launches of a short trace of back-to-back calls)
+    for key, name, kernels in (
+            ("flash_attention_bwd", "qwen3-1.7b", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
+            ("wkv6_bwd", "rwkv6-3b", ("wkv6_bwd_kernel", "wkv6_bwd_reduce_kernel"))):
+        run = out["runs"][name]
+        out[key]["device_ms"] = (sum(run["kernel_device_ms_per_step"].get(k, 0.0) for k in kernels)
+                                 / run["launches_per_step"][key])
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
         print("chip_smoke: src/repro_torch is missing next to this script; "
@@ -4067,21 +4617,28 @@ def main() -> int:
     attention_err = attention_checks(dev)
     flash_err = flash_checks(dev)
     wkv6_err = wkv6_checks(dev)
+    flash_bwd_err = flash_bwd_checks(dev)
+    wkv6_bwd_err = wkv6_bwd_checks(dev)
     log(f"== 2 kernels == plain versions: victim_partition and migrate_pages "
         f"exact (max |diff| {worst}, {migrate_err}), strided_probe within its "
         f"float64 rounding bound (max |err| {probe_err}), "
         f"paged_decode_attention within 2e-4 f32 / 2e-2 bf16 (max |diff| "
         f"{attention_err}), flash_attention within 2e-4 f32 / 2e-2 bf16 (max "
         f"|diff| {flash_err}), wkv6 within 3e-4 f32 / 2e-2 bf16 (max |diff| "
-        f"{wkv6_err}) in {time.perf_counter() - t:.2f} s")
+        f"{wkv6_err}); flash_attention_bwd and wkv6_bwd == autograd of the plain "
+        f"versions within 1e-4 f32 / 1e-2 bf16 of each gradient's scale (max "
+        f"|diff| {flash_bwd_err}, {wkv6_bwd_err}), 10 repeats bit-identical, in "
+        f"{time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     lanes = lanes_agree()
     serving_lanes = serving_lanes_agree()
     model_lanes = model_lanes_agree(dev)
+    train_lanes = train_lanes_agree(dev)
     log(f"== 3 CPU lane == CUDA lane, bit for bit: sweep {lanes}, serving "
         f"{serving_lanes}; models at full width, {LANE_LAYERS} layers, float32, "
-        f"within {LANE_TOL}: {json.dumps(model_lanes)} in "
+        f"within {LANE_TOL}: {json.dumps(model_lanes)}; one training step there "
+        f"within {TRAIN_LANE_TOL}: {json.dumps(train_lanes)} in "
         f"{time.perf_counter() - t:.2f} s")
 
     capture: dict = {}
@@ -4219,7 +4776,24 @@ def main() -> int:
     log(f"   victim_partition launches {api13['victim_partition_launches']}; seconds "
         + json.dumps(api13["seconds"]))
 
+    t = time.perf_counter()
+    tr = training(dev)
+    tr["seconds"]["phase_s"] = time.perf_counter() - t
+    log(f"== 14 training on the card ({card}) through repro_torch.launch.trainer.train, "
+        f"{TRAIN_BATCH} x {TRAIN_LEN} tokens a step, remat full, in "
+        f"{tr['seconds']['phase_s']:.2f} s")
+    for name, row in tr["runs"].items():
+        log(f"   ({'ab'[MODEL_FAMILIES.index(name)]}) {name}: " + json.dumps(row))
+        log(f"   (c) {name} at {GRAD_LAYERS} layers, kernels vs plain: "
+            + json.dumps(tr["grads"][name]))
+    log("   (d) resume: " + json.dumps(tr["resume"]))
+    log("   (e) flash_attention_bwd: " + json.dumps(tr["flash_attention_bwd"]))
+    log("   (e) wkv6_bwd: " + json.dumps(tr["wkv6_bwd"]))
+    log("   seconds " + json.dumps(tr["seconds"]))
+
     promote = mig["promote"]
+    fb, wb = tr["flash_attention_bwd"], tr["wkv6_bwd"]
+    qwen3_run, rwkv6_run = tr["runs"]["qwen3-1.7b"], tr["runs"]["rwkv6-3b"]
     kernels = [{
         "name": "victim_partition",
         "route": "cuda",
@@ -4317,6 +4891,34 @@ def main() -> int:
         "full_size_ms": tm["timing_full"]["replay_s"] * 1e3,
         "full_size_events": tm["timing_full"]["events"],
         "full_size_bound_ms": tm["timing_full"]["bound_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: the JAX package trains through jax.grad of ref.attention
+        "replaces": "src/repro/kernels/ref.py:16",
+        "replaces_under": "jax.grad",
+        "tpu_kernel": None,
+        "launches": qwen3_run["launches"]["flash_attention_bwd"],
+        "launches_per_step": qwen3_run["launches_per_step"]["flash_attention_bwd"],
+        "max_abs_err": max(flash_bwd_err, fb["max_abs_err"]),
+        **{k: fb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "device_ms")},
+        "launches_training_forward": qwen3_run["launches"]["flash_attention"],
+    }, {
+        "name": "wkv6_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+        # no TPU kernel: the JAX package trains through jax.grad of ref.wkv6
+        "replaces": "src/repro/kernels/ref.py:91",
+        "replaces_under": "jax.grad",
+        "tpu_kernel": None,
+        "launches": rwkv6_run["launches"]["wkv6_bwd"],
+        "launches_per_step": rwkv6_run["launches_per_step"]["wkv6_bwd"],
+        "max_abs_err": max(wkv6_bwd_err, wb["max_abs_err"]),
+        **{k: wb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "device_ms")},
+        "launches_training_forward": rwkv6_run["launches"]["wkv6"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,7 +23,9 @@ same inputs to both packages.
 * model parameters: the JAX ``init_model`` pytree as nested dicts of numpy
   arrays, each block group's leaves stacked on a leading ``G`` axis, which
   the port unstacks into one dict a layer (bfloat16 again as ``uint16``
-  bits on the way back).
+  bits on the way back);
+* an AdamW state: ``{"m", "v", "step"}``, ``m`` and ``v`` laid out as the
+  parameters (float32 or bfloat16), ``step`` an int32 scalar.
 """
 
 from __future__ import annotations
@@ -202,3 +204,24 @@ def params_from_model(params: dict, cfg) -> dict:
     if "lm_head" in params:
         tree["lm_head"] = pool_bits(params["lm_head"])
     return tree
+
+
+def opt_state_from_jax(state: dict, cfg) -> dict:
+    """The port's AdamW state (CPU tensors) from the JAX package's
+    ``adamw().init`` / ``update`` state given as numpy arrays: ``m`` and
+    ``v`` unstacked as :func:`model_params_from_jax` unstacks the weights."""
+    return {
+        "m": model_params_from_jax(state["m"], cfg),
+        "v": model_params_from_jax(state["v"], cfg),
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32),
+    }
+
+
+def opt_state_to_jax(state: dict, cfg) -> dict:
+    """The inverse of :func:`opt_state_from_jax`: the JAX layout as numpy
+    arrays (bfloat16 state as ``uint16`` bits)."""
+    return {
+        "m": params_from_model(state["m"], cfg),
+        "v": params_from_model(state["v"], cfg),
+        "step": np.asarray(int(state["step"]), dtype=np.int32),
+    }

@@ -64,9 +64,19 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (batch, H, S) log-sum-exp in log2 units, or null (serving)
   int S, T, H, KV, causal;
   float scale_log2;  // sm_scale * log2(e)
 };
+
+// Row `row` of head h, batch b: the log2-unit log-sum-exp of its scaled
+// scores, m + log2(l), which the backward (csrc/flash_attention_bwd.cu)
+// reads to rebuild P; +inf for a row that sees no key (its P is all zeros).
+__device__ __forceinline__ void store_lse(const Args& a, int b, int h, int row,
+                                          float m, float l) {
+  a.lse[(static_cast<int64_t>(b) * a.H + h) * a.S + row] =
+      l > 0.0f ? m + log2f(l) : INFINITY;
+}
 
 // ---------------------------------------------------------------- float32
 
@@ -252,6 +262,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fma_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= a.S) continue;
+    if (a.lse != nullptr && tx == 0) store_lse(a, b, h, row, m[i], l[i]);
     const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
     float* orow = out + ((static_cast<int64_t>(b) * a.S + row) * a.H + h) * HD;
 #pragma unroll
@@ -530,6 +541,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(Args a) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
+    const int row = q0 + warp * 16 + gr + i * 8;
+    if (a.lse != nullptr && tq == 0 && row < a.S) store_lse(a, b, h, row, m[i], l[i]);
   }
   unsigned char* qbytes = reinterpret_cast<unsigned char*>(qs);
 #pragma unroll
@@ -598,10 +611,13 @@ extern "C" long long flash_attention_smem_bytes(int dtype, int hd) {
 
 // q (batch, S, H, hd), k and v (batch, T, KV, hd), out like q: contiguous
 // device arrays of one type, 16-byte aligned; dtype 0 = float32 (FMA
-// kernel), 1 = bfloat16 (tensor-core kernel). Launches on `stream` and
-// returns cudaGetLastError() as an int (0 = launched).
+// kernel), 1 = bfloat16 (tensor-core kernel). lse, when not null, receives
+// each row's log-sum-exp (batch, H, S) float32 in log2 units (see
+// store_lse), for the backward. Launches on `stream` and returns
+// cudaGetLastError() as an int (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
+                                      const void* v, void* out, void* lse,
+                                      int dtype,
                                       int batch, int S, int T, int H, int KV,
                                       int hd, int causal, float sm_scale,
                                       void* stream) {
@@ -610,7 +626,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, out, S, T, H, KV, causal ? 1 : 0, sm_scale * kLog2e};
+  const Args a{q, k, v, out, static_cast<float*>(lse), S, T, H, KV, causal ? 1 : 0,
+               sm_scale * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch<16>(a, dtype, batch, st);

@@ -6,6 +6,12 @@ wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor. The JAX module's ``try: ... except
 Exception:`` fallback to the reference is not carried over: a CUDA tensor
 launches the kernel or raises.
+
+Training differentiates both: where autograd records, ``attention`` and
+``wkv6`` on a CUDA tensor go through their ``torch.autograd.Function``
+(``FlashAttention``, ``WKV6``), whose backward is a hand-written kernel
+too; on a CPU tensor autograd differentiates the plain versions. Serving
+(no gradient) launches the forward kernels alone.
 """
 
 from __future__ import annotations

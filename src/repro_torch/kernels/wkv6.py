@@ -18,6 +18,13 @@ a (batch, head, slice), and each column's rows over lanes of one warp:
 Bound: operations on a dependent chain of tokens (about 6.7 GFLOP a layer
 at RWKV6-3B's 4 x 2,048-token prefill, 0.10 ms at 67 TFLOP/s of float32);
 the times are in ``PERF.md``.
+
+Gradients: on a CPU tensor autograd differentiates the plain version. On a
+CUDA tensor that needs a gradient, :class:`WKV6` launches the forward kernel
+and, for the gradient, the hand-written kernel ``csrc/wkv6_bwd.cu``
+(:func:`wkv6_bwd`). The JAX package has no backward kernel: ``jax.grad``
+through its Pallas kernel raises and ``repro/kernels/ops.py`` trains through
+``ref.wkv6`` (``ref.py:91``), whose gradient this is.
 """
 
 from __future__ import annotations
@@ -71,7 +78,23 @@ def wkv6_plain(r, k, v, w, u):
     return o.to(r.dtype), state
 
 
-def _launch(r, k, v, w, u):
+def wkv6_bwd_plain(r, k, v, w, u, do, dstate=None):
+    """(dr, dk, dv, dw, du): autograd of :func:`wkv6_plain` at the output
+    gradient ``do`` and the final state's ``dstate`` (None: zeros), each in
+    its input's dtype (zeros where nothing depends on it: w of the last
+    token without ``dstate``)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+        o, state = wkv6_plain(*leaves)
+        outs, grads = [o], [do]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        got = torch.autograd.grad(outs, leaves, grads, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, got))
+
+
+def _check(r, k, v, w, u) -> None:
     if r.dim() != 4 or k.shape != r.shape or v.shape != r.shape or w.shape != r.shape:
         raise ValueError(
             f"want r, k, v, w of one shape (B,S,H,hd), got {tuple(r.shape)}, "
@@ -92,6 +115,11 @@ def _launch(r, k, v, w, u):
     for name, t in (("k", k), ("v", v), ("w", w), ("u", u)):
         if t.device != r.device:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
+
+
+def _launch(r, k, v, w, u):
+    _check(r, k, v, w, u)
+    B, S, H, hd = r.shape
     # the kernel stages r, k, v and w by 16-byte copies
     r, k, v, w, u = (t.contiguous() if t.data_ptr() % 16 == 0
                      else t.clone(memory_format=torch.contiguous_format)
@@ -115,6 +143,84 @@ def _launch(r, k, v, w, u):
     return o, state
 
 
+def _launch_bwd(r, k, v, w, u, do, dstate):
+    _check(r, k, v, w, u)
+    B, S, H, hd = r.shape
+    if do.shape != r.shape or do.device != r.device:
+        raise ValueError(f"do must be like r {tuple(r.shape)} on {r.device}, got "
+                         f"{tuple(do.shape)} on {do.device}")
+    if dstate is not None and (dstate.shape != (B, H, hd, hd) or dstate.device != r.device):
+        raise ValueError(f"dstate must be {(B, H, hd, hd)} on {r.device}, got "
+                         f"{tuple(dstate.shape)} on {dstate.device}")
+    lib = _build.load("wkv6_bwd")
+    chunk, cols = lib.wkv6_bwd_chunk(), lib.wkv6_bwd_slice()
+    r, k, v, w, u, do = (t.contiguous() for t in (r, k, v, w, u, do.to(r.dtype)))
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du = torch.empty_like(u)
+    if B == 0 or H == 0:
+        return dr, dk, dv, dw, du.zero_()
+    slices, chunks = hd // cols, -(-S // chunk)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    ckpt = torch.empty(B * H * slices * chunks * cols * hd, **f32)
+    part = torch.empty(3 * slices * r.numel(), **f32)
+    du_part = torch.empty(slices * B * H * hd, **f32)
+    fn = _build.function("wkv6_bwd", "wkv6_bwd_launch", [
+        *[ctypes.c_void_p] * 15, *[ctypes.c_int] * 5, ctypes.c_void_p,
+    ])
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                do.data_ptr(), None if dstate is None else dstate.data_ptr(),
+                ckpt.data_ptr(), part.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+                _DTYPES[r.dtype], B, S, H, hd, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error {rc}")
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du
+
+
+def wkv6_bwd(r, k, v, w, u, do, dstate=None):
+    """(dr, dk, dv, dw, du) of :func:`wkv6` at the output gradient ``do``
+    and the final state's gradient ``dstate`` (None: zeros); ``du`` summed
+    over batch and time. On a CUDA tensor it launches ``csrc/wkv6_bwd.cu``
+    (float32 arithmetic, no atomics: every call gives the same bits); on a
+    CPU tensor it takes :func:`wkv6_bwd_plain`. ``wkv6_bwd.launches`` counts
+    the CUDA launches.
+
+    Bound: operations, about 14 flops per (token, i, j) at the float32
+    rate outside the tensor cores."""
+    if r.device.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, w, u, do, dstate)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_bwd runs on cuda or cpu, not {r.device}")
+    return _launch_bwd(r, k, v, w, u, do, dstate)
+
+
+wkv6_bwd.launches = 0
+
+
+class WKV6(torch.autograd.Function):
+    """The forward kernel and, for the gradient, the backward kernel, on
+    CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        o, state = _launch(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        return o, state
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        r, k, v, w, u = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        return wkv6_bwd(r, k, v, w, u, do, dstate)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor):
     """RWKV6 WKV from a zero state.
@@ -126,12 +232,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     v-index]``.
 
     ``wkv6.launches`` counts the CUDA kernel's launches; the CPU path never
-    adds to it.
+    adds to it. Where autograd records (grad mode on and an input that
+    requires a gradient) the CUDA path goes through :class:`WKV6`, whose
+    backward is the backward kernel.
     """
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
+        return WKV6.apply(r, k, v, w, u)
     return _launch(r, k, v, w, u)
 
 

@@ -1,2 +1,2 @@
 """Launch entry points of the port (counterpart of :mod:`repro.launch`):
-serving on one card so far."""
+serving and training on one card."""

@@ -9,6 +9,8 @@ return value have no counterpart.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, forward, init_decode_state
 from repro_torch.models.config import ModelConfig
@@ -30,8 +32,9 @@ def make_serve_fns(cfg: ModelConfig, batch: int, max_len: int, device=None):
     dev = resolve_device(device)
 
     def prefill_fn(params, tokens, extra_embeds=None, frames=None):
-        logits, _ = forward(params, cfg, tokens, extra_embeds=extra_embeds,
-                            frames=frames)
+        with torch.inference_mode():
+            logits, _ = forward(params, cfg, tokens, extra_embeds=extra_embeds,
+                                frames=frames)
         return logits[:, -1:]
 
     def decode_fn(params, state, token, cur_len):

@@ -8,8 +8,15 @@ per layer (``params["layers"]``) and loops over them in Python. The decode
 state keeps the JAX layout (``b{i}_k`` etc., stacked over groups) and is
 updated in place.
 
-* :func:`forward` -- full sequence (prefill), through the flash-attention
-  and WKV6 kernels; returns (logits, aux loss).
+* :func:`forward` -- full sequence (training and prefill), through the
+  flash-attention and WKV6 kernels; returns (logits, aux loss). Autograd
+  differentiates it (the kernels' backward are kernels too), with
+  ``remat`` in ``none`` | ``full`` | ``dots``: activation checkpointing of
+  each layer group, as ``jax.checkpoint`` of the scanned group does in the
+  JAX package. ``full`` keeps only the group's input and recomputes the
+  rest in the backward (``torch.utils.checkpoint``, non-reentrant);
+  ``dots`` keeps the matrix products' outputs as well (a selective
+  checkpoint saving ``aten.mm``, ``aten.bmm`` and ``aten.addmm``).
 * :func:`decode_step` -- one token against the decode state made by
   :func:`init_decode_state`.
 * :func:`prefill` -- fills the decode state from a prompt by one
@@ -19,16 +26,25 @@ updated in place.
   state by a scan of decode steps; :func:`prefill_stepwise` is that loop,
   kept as the oracle.
 
+:func:`decode_step`, :func:`prefill` and the serve fns run under
+``torch.inference_mode``.
+
 Not ported yet (later slices): MLA, MoE, Mamba, the encoder and
-cross-attention, VLM ``extra_embeds``, ``remat`` and the int8 KV cache;
-each raises ``NotImplementedError``.
+cross-attention, VLM ``extra_embeds`` and the int8 KV cache; each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -68,6 +84,17 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator, device=None):
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, weights go to {dev}")
+    return _init(cfg, generator, dev)
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree of :func:`init_model` as meta tensors: shapes and
+    dtypes, no memory and no draws."""
+    check_supported(cfg)
+    return _init(cfg, torch.Generator(), torch.device("meta"))
+
+
+def _init(cfg: ModelConfig, generator, dev):
     dt = L.param_dtype(cfg)
     params = {
         "embed": L.dense_init((cfg.vocab_size, cfg.d_model), dt, 1, generator, dev),
@@ -117,52 +144,85 @@ def _head(params, cfg: ModelConfig, x):
     return x @ params["lm_head"]
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+# the matrix products whose outputs remat="dots" keeps (JAX's
+# dots_with_no_batch_dims_saveable keeps dot_general outputs)
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def forward(params, cfg: ModelConfig, tokens, extra_embeds=None, frames=None,
             remat: str = "none"):
     """Full-sequence forward over ``tokens`` (B, S). Returns (logits
-    (B, S, V), aux loss); the aux loss is 0 without MoE."""
+    (B, S, V), aux loss); the aux loss is 0 without MoE. ``remat``
+    checkpoints each layer group for training (see the module's
+    docstring)."""
     check_supported(cfg)
     if extra_embeds is not None or frames is not None:
         raise NotImplementedError(
             "VLM extra_embeds and audio frames come with a later slice of the port"
         )
-    if remat != "none":
-        raise NotImplementedError("remat comes with the training slice of the port")
-    logits = _forward(params, cfg, tokens)
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
+    logits = _forward(params, cfg, tokens, remat=remat)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def _forward(params, cfg: ModelConfig, tokens, state=None):
+def _block(x, kind, lp, cfg: ModelConfig, rope, state=None, g=0, i=0):
+    """One block over x (B, S, D); with ``state``, writes what the decode
+    steps would leave there (see :func:`_forward`)."""
+    h = L.norm_apply(lp["ln1"], x, cfg)
+    if kind == "attn":
+        a, (k, v) = L.attn_apply(lp["mix"], h, cfg, rope)
+        if state is not None:
+            S = x.shape[1]
+            state[f"b{i}_k"][g, :, :S] = k
+            state[f"b{i}_v"][g, :, :S] = v
+        x = x + a
+        return x + L.mlp_apply(lp["ffn"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+    t, (tm_x, wkv) = L.rwkv_time_mix(lp["mix"], h, cfg)
+    x = x + t
+    c, cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+    if state is not None:
+        state[f"b{i}_tm_x"][g] = tm_x
+        state[f"b{i}_wkv"][g] = wkv
+        state[f"b{i}_cm_x"][g] = cm_x
+    return x + c
+
+
+def _group(x, layers, cfg: ModelConfig, rope, state=None, g=0):
+    """The blocks of layer group ``g`` (``cfg.block_pattern``) over x."""
+    for i, (kind, lp) in enumerate(zip(cfg.block_pattern, layers)):
+        x = _block(x, kind, lp, cfg, rope, state, g, i)
+    return x
+
+
+def _forward(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
     """The blocks over ``tokens`` (B, S); logits (B, S, V). With ``state``
     (a decode state of at least S positions), each block also writes what
     the decode steps would leave there after the S tokens: the keys and
     values at positions 0 .. S-1, the time and channel mixes' last inputs
     and the final WKV state."""
-    with torch.inference_mode():
-        x = _embed(params, cfg, tokens)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        rope = L.rope_tables(positions, cfg)
-        for layer, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
-            g, i = divmod(layer, cfg.group_size)
-            h = L.norm_apply(lp["ln1"], x, cfg)
-            if kind == "attn":
-                a, (k, v) = L.attn_apply(lp["mix"], h, cfg, rope)
-                if state is not None:
-                    state[f"b{i}_k"][g, :, :S] = k
-                    state[f"b{i}_v"][g, :, :S] = v
-                x = x + a
-                x = x + L.mlp_apply(lp["ffn"], L.norm_apply(lp["ln2"], x, cfg), cfg)
-            else:
-                t, (tm_x, wkv) = L.rwkv_time_mix(lp["mix"], h, cfg)
-                x = x + t
-                c, cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg), cfg)
-                x = x + c
-                if state is not None:
-                    state[f"b{i}_tm_x"][g] = tm_x
-                    state[f"b{i}_wkv"][g] = wkv
-                    state[f"b{i}_cm_x"][g] = cm_x
-        return _head(params, cfg, x)
+    x = _embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    rope = L.rope_tables(positions, cfg)
+    n = cfg.group_size
+    for g in range(cfg.num_groups):
+        layers = params["layers"][g * n:(g + 1) * n]
+        if remat == "none":
+            x = _group(x, layers, cfg, rope, state, g)
+        else:
+            kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                   _save_dots)} if remat == "dots" else {})
+            x = checkpoint(_group, x, layers, cfg, rope, use_reentrant=False, **kw)
+    return _head(params, cfg, x)
 
 
 # ------------------------------------------------------------------- decode
@@ -241,7 +301,8 @@ def prefill(params, cfg: ModelConfig, tokens, state, extra_embeds=None, frames=N
     :func:`prefill_stepwise` is the same fill by S decode steps."""
     check_supported(cfg)
     _check_prompt(tokens, extra_embeds, frames)
-    logits = _forward(params, cfg, tokens, state=state)
+    with torch.inference_mode():
+        logits = _forward(params, cfg, tokens, state=state)
     return logits[:, -1:], state
 
 

@@ -10,7 +10,10 @@ is held to a float64 version within its rounding bound and
 split-and-merge) and ``flash_attention`` to their plain versions within
 2e-4 (float32) or 2e-2 (bfloat16), ``wkv6`` to its plain version
 within 3e-4 (float32 r, k, v; the float32 state always) or 2e-2 (bfloat16
-r, k, v beside float32 w).
+r, k, v beside float32 w). The backward kernels ``flash_attention_bwd``
+and ``wkv6_bwd`` are held to autograd of the plain versions within 1e-4
+(float32) or 1e-2 (bfloat16) of each gradient's largest value, and repeat
+bit for bit.
 """
 
 import numpy as np
@@ -665,3 +668,104 @@ def test_first_touch_sweep_on_the_card_equals_the_cpu(cuda):
         launched = victim_partition.launches - before
     assert out["cpu"] == out["cuda"]
     assert launched == 0  # first touch selects no victims
+
+
+# ------------------------------------------------------------ backward kernels
+# Each backward kernel against autograd of its plain version on the same
+# inputs, per gradient by the largest difference relative to the largest
+# gradient: 1e-4 in float32 (other summation orders), 1e-2 in bfloat16 (the
+# kernels compute in float32 and round once; the plain version's gradients
+# round at other points, each a few 2^-8 ulps of the gradient's scale).
+def _close(got, want, tol, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    scale = float(want.float().abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    assert diff <= tol * max(scale, 1e-30), f"{name}: max |diff| {diff}, scale {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
+    (1, 1000, 1000, 16, 8, 128, True),
+    (1, 2047, 2047, 16, 8, 128, True),
+    (2, 100, 100, 16, 8, 128, True),  # GQA 2, Qwen3's head layout, ragged tail
+    (1, 128, 128, 8, 2, 64, True),  # GQA 4
+    (1, 64, 192, 8, 2, 128, False),
+    (1, 33, 65, 2, 1, 64, True),  # T > S
+    (2, 48, 20, 4, 2, 16, True),  # S > T: the first rows see no key
+    (1, 40, 40, 4, 4, 32, False),  # GQA 1
+])
+def test_flash_attention_bwd_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal):
+    from repro_torch.kernels.flash_attention import (
+        FlashAttention, flash_attention_bwd, flash_attention_bwd_plain)
+
+    g = torch.Generator().manual_seed(S * T + hd + 1)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda).requires_grad_(True)
+               for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    do = torch.randn((B, S, H, hd), generator=g).to(dtype).to(cuda)
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert out.grad_fn is not None and out.grad_fn.name().startswith(FlashAttention.__name__)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - fwd, flash_attention_bwd.launches - bwd) == (1, 1)
+    want = flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, b in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad), want):
+        _close(a, b, tol, name)
+    if causal and S > T:
+        assert not bool(q.grad[:, : S - T].any())
+
+
+def test_flash_attention_bwd_repeats_bit_identical(cuda):
+    from repro_torch.kernels.flash_attention import _launch, flash_attention_bwd
+
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((2, 2048, 16, 128), generator=g).to(torch.bfloat16).to(cuda)
+    k, v = (torch.randn((2, 2048, 8, 128), generator=g).to(torch.bfloat16).to(cuda)
+            for _ in range(2))
+    do = torch.randn_like(q.float()).to(torch.bfloat16)
+    out, lse = _launch(q, k, v, True, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    for _ in range(10):
+        again = flash_attention_bwd(q, k, v, out, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,strong", [
+    (2, 45, 3, 16, True), (2, 45, 3, 32, False), (2, 45, 3, 64, True),
+    (1, 19, 2, 128, True), (1, 1, 40, 64, False), (1, 33, 40, 64, False),
+    (1, 2048, 4, 64, False),
+])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_bwd_matches_plain(cuda, dtype, B, S, H, hd, strong, with_state):
+    from repro_torch.kernels.wkv6 import WKV6, wkv6_bwd, wkv6_bwd_plain
+
+    inputs = [t.requires_grad_(True) for t in _wkv6_inputs(cuda, dtype, B, S, H, hd, strong)]
+    g = torch.Generator().manual_seed(S + hd)
+    do = torch.randn((B, S, H, hd), generator=g).to(dtype).to(cuda)
+    ds = torch.randn((B, H, hd, hd), generator=g).to(cuda) if with_state else None
+    fwd, bwd = wkv6.launches, wkv6_bwd.launches
+    o, state = wkv6(*inputs)
+    assert o.grad_fn is not None and o.grad_fn.name().startswith(WKV6.__name__)
+    torch.autograd.backward([o, state] if with_state else [o],
+                            [do, ds] if with_state else [do])
+    torch.cuda.synchronize()
+    assert (wkv6.launches - fwd, wkv6_bwd.launches - bwd) == (1, 1)
+    want = wkv6_bwd_plain(*inputs, do, ds)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, t, b in zip(("dr", "dk", "dv", "dw", "du"), inputs, want):
+        _close(t.grad, b, tol, name)
+
+
+def test_wkv6_bwd_repeats_bit_identical(cuda):
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+
+    args = _wkv6_inputs(cuda, torch.bfloat16, 2, 300, 40, 64, strong=True)
+    do = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(6)).to(
+        torch.bfloat16).to(cuda)
+    ds = torch.randn((2, 40, 64, 64), generator=torch.Generator().manual_seed(7)).to(cuda)
+    first = wkv6_bwd(*args, do, ds)
+    for _ in range(10):
+        again = wkv6_bwd(*args, do, ds)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))

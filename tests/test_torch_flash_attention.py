@@ -103,3 +103,67 @@ def test_other_devices_are_refused():
     t = torch.zeros((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(t, t, t)
+
+
+# --------------------------------------------------------------- gradients
+# The JAX package trains through ``ref.attention`` (its Pallas kernel has no
+# gradient), so autograd of the port's CPU path is held against jax.grad of
+# ref.attention in float32, at 1e-4 (the two frameworks sum in other orders;
+# the gradients are O(1) and differ by about 1e-6). Rows that see no key are
+# left out of ref's side: ref gives NaN there (tested separately below).
+def _grads_ref(q, k, v, do, causal):
+    import jax
+
+    f = lambda q, k, v: jnp.sum(ref.attention(q, k, v, causal=causal) * do)  # noqa: E731
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))]
+
+
+@pytest.mark.parametrize(
+    "B,S,T,H,KV,hd,causal",
+    [
+        (1, 40, 40, 4, 4, 16, True),
+        (2, 33, 65, 8, 2, 32, True),  # GQA 4, T > S, ragged
+        (1, 24, 50, 4, 2, 64, False),
+    ],
+)
+def test_gradients_match_jax_grad_of_ref(B, S, T, H, KV, hd, causal):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v = _case(B, S, T, H, KV, hd)
+    do = RNG.normal(size=q.shape).astype(np.float32)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*(torch.from_numpy(a) for a in (q, k, v)), None, None,
+                              torch.from_numpy(do), causal=causal)
+    assert flash_attention_bwd.launches == before
+    for g, want in zip(got, _grads_ref(q, k, v, do, causal)):
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_gradient_through_ops_attention_is_autograd_of_the_plain_version():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+    q, k, v = (torch.from_numpy(a) for a in _case(1, 20, 20, 4, 2, 16))
+    do = torch.from_numpy(RNG.normal(size=q.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.attention(*leaves, causal=True).backward(do)
+    for a, b in zip((t.grad for t in leaves), flash_attention_bwd_plain(q, k, v, do)):
+        assert torch.equal(a, b)
+
+
+def test_rows_that_see_no_key_have_zero_gradients():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v = _case(1, 50, 20, 4, 2, 16)  # causal: the first 30 rows see no key
+    do = RNG.normal(size=q.shape).astype(np.float32)
+    dq, dk, dv = flash_attention_bwd(*(torch.from_numpy(a) for a in (q, k, v)), None,
+                                     None, torch.from_numpy(do), causal=True)
+    assert not bool(dq[:, :30].any())
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    # the rows that see keys: ref's gradient with the keyless rows' dO zeroed
+    do_seen = do.copy()
+    do_seen[:, :30] = 0.0
+    want = _grads_ref(q[:, 30:], k, v, do_seen[:, 30:], True)
+    np.testing.assert_allclose(dq[:, 30:].numpy(), want[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dk.numpy(), want[1], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dv.numpy(), want[2], rtol=1e-4, atol=1e-4)

@@ -106,3 +106,52 @@ def test_wkv6_grid_splits_columns_and_rows(hd):
     assert wkv6_grid(hd, 8, 132)[1] > 1
     if hd == 64:  # RWKV6-3B's prefill: 4 x 40 heads, 320 blocks of 4 warps
         assert wkv6_grid(64, 160, 132) == (32, 2)
+
+
+# --------------------------------------------------------------- gradients
+# The JAX package trains through ``ref.wkv6`` (its Pallas kernel has no
+# gradient), so autograd of the port's CPU path is held against jax.grad of
+# ref.wkv6 in float32, with and without a gradient of the final state, at
+# strong decays (many w under 1e-3) too, at 1e-4 relative to the largest
+# gradient of each input (other summation orders; they differ by ~1e-6 of it).
+def _jax_grads(r, k, v, w, u, do, dstate):
+    import jax
+
+    def f(r, k, v, w, u):
+        o, s = ref.wkv6(r, k, v, w, u)
+        out = jnp.sum(o * do)
+        return out + jnp.sum(s * dstate) if dstate is not None else out
+
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (r, k, v, w, u)))]
+
+
+@pytest.mark.parametrize("B,S,H,hd,decay_base", [(2, 37, 3, 16, -1.0), (1, 50, 2, 32, 2.0),
+                                                  (1, 20, 2, 64, -4.0)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_gradients_match_jax_grad_of_ref(B, S, H, hd, decay_base, with_state):
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+
+    args = _case(B, S, H, hd, decay_base=decay_base)
+    do = RNG.normal(size=args[0].shape).astype(np.float32)
+    dstate = RNG.normal(size=(B, H, hd, hd)).astype(np.float32) if with_state else None
+    before = wkv6_bwd.launches
+    got = wkv6_bwd(*(torch.from_numpy(a) for a in args), torch.from_numpy(do),
+                   None if dstate is None else torch.from_numpy(dstate))
+    assert wkv6_bwd.launches == before
+    for name, g, want in zip("rkvwu", got, _jax_grads(*args, do, dstate)):
+        assert g.shape == want.shape, name
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-4 * float(np.abs(want).max()), err_msg=name)
+
+
+def test_gradient_through_ops_wkv6_is_autograd_of_the_plain_version():
+    from repro_torch.kernels.wkv6 import wkv6_bwd_plain
+
+    args = [torch.from_numpy(a) for a in _case(1, 9, 2, 16)]
+    do = torch.from_numpy(RNG.normal(size=args[0].shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    o, _ = ops.wkv6(*leaves)
+    o.backward(do)
+    for a, b in zip((t.grad for t in leaves), wkv6_bwd_plain(*args, do)):
+        assert torch.equal(a, b)
