@@ -28,10 +28,12 @@ Phases, each of which must pass (any failure exits non-zero):
    within stated tolerances; ``strided_probe`` also at page rows of 1,000
    and 1,001 floats, a pool base one float past alignment, page counts
    around its grid, one page, and 20 bit-identical repeats; the backward
-   kernels ``flash_attention_bwd`` (causal and not, T > S, GQA ratios 1, 2
-   and 4, ragged tails at 1,000 and 2,047 tokens, head sizes 64 and 128,
-   rows that see no key) and ``wkv6_bwd`` (S from 1 to 2,048, decays near 0
-   and near 1, every head size, a final-state gradient given and not)
+   kernels ``flash_attention_bwd`` (causal and not, T > S and S > T off the
+   tiles, GQA ratios 1, 2, 4 and 8, ragged tails at 1,000 and 2,047
+   tokens, every head size, rows that see no key; each dtype runs its own
+   pair of kernels, by the profiler's names) and ``wkv6_bwd`` (S from 1 to
+   2,048, decays near 0 and near 1, every head size, head counts that are
+   not a multiple of its cluster, a final-state gradient given and not)
    against autograd of their plain versions in bfloat16 and float32, and
    10 bit-identical repeats each;
 3. the CPU lane == the CUDA lane, bit for bit: the sweep through ``run``
@@ -178,7 +180,8 @@ Phases, each of which must pass (any failure exits non-zero):
     for bit (the checkpoint's bytes, restore and save seconds); (e) both
     backward kernels timed on the first layer's training inputs beside
     autograd of their plain versions, their bounds and, for attention, the
-    backward of ``scaled_dot_product_attention``.
+    backward of ``scaled_dot_product_attention``; the profiled training
+    step must hold device time of every backward kernel it launched.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -259,6 +262,11 @@ LANE_LAYERS, LANE_BATCH, LANE_LEN, LANE_TOL = 2, 2, 64, 1e-3
 # CPU); an element whose gradient is rounding noise may take the other sign
 # of a first Adam step on the other lane, hence the update's L2 measure.
 TRAIN_LANE_TOL = 1e-3
+# the backward kernels' __global__ names, which phase 14 finds in the
+# profiled training step (bfloat16: the tensor-core pair; wkv6_bwd's second
+# kernel adds du's batch rows)
+BWD_KERNELS = {"flash_attention_bwd": ("flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel"),
+               "wkv6_bwd": ("wkv6_bwd_kernel", "wkv6_bwd_du_kernel")}
 
 
 def log(msg: str) -> None:
@@ -1536,16 +1544,19 @@ def flash_bwd_checks(dev) -> float:
     """flash_attention_bwd == autograd of flash_attention_plain on the card:
     per gradient the largest difference within 1e-4 (float32) or 1e-2
     (bfloat16) of the gradient's largest value, in both dtypes; causal and
-    not, T > S, GQA ratios 1, 2 and 4, ragged tails at 1,000 and 2,047
-    tokens, head sizes 64 and 128, rows that see no key (their gradients
-    zeros); then one call 10 times over, bit-identical each time. The
-    kernel computes in float32 and rounds once; the plain bfloat16
-    gradients round at other points (a few 2^-8 ulps of their scale).
-    Returns the largest absolute difference."""
+    not, T > S, GQA ratios 1, 2, 4 and 8, ragged tails at 1,000 and 2,047
+    tokens, S and T off the tiles with T > S and S > T, head sizes 16, 32,
+    64 and 128, rows that see no key (their gradients zeros); each dtype
+    runs its own pair of kernels (the library's launch count of each
+    kernel: FMA for float32, tensor cores for bfloat16); then one call 10 times over, bit-identical
+    each time. The bfloat16 kernels round P and dS to bfloat16 as the
+    products' inputs and sum in float32; the plain bfloat16 gradients round
+    at other points (a few 2^-8 ulps of their scale). Returns the largest
+    absolute difference."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
-        _launch, flash_attention_bwd, flash_attention_bwd_plain)
+        _launch, flash_attention_bwd, flash_attention_bwd_plain, flash_bwd_kernel_launches)
 
     g = torch.Generator().manual_seed(41)
     worst = 0.0
@@ -1554,6 +1565,8 @@ def flash_bwd_checks(dev) -> float:
         (2, 100, 100, 16, 8, 128, True), (1, 128, 128, 8, 2, 64, True),
         (1, 64, 192, 8, 2, 128, False), (1, 33, 65, 2, 1, 64, True),
         (2, 48, 20, 4, 2, 64, True), (1, 40, 40, 4, 4, 128, False),
+        (1, 300, 300, 16, 2, 128, True), (1, 77, 77, 16, 2, 16, True),
+        (1, 130, 200, 4, 2, 32, True), (1, 150, 90, 4, 1, 32, True),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, T, H, KV, hd, causal in cases:
@@ -1576,6 +1589,15 @@ def flash_bwd_checks(dev) -> float:
             if causal and S > T:
                 check(not bool(got[0][:, : S - T].any()),
                       "flash_attention_bwd: rows with no key have gradients")
+        # the dtype's own kernels ran, and no other (the library's count of
+        # each kernel's launches: the profiler's trace can miss a launch)
+        before = flash_bwd_kernel_launches()
+        flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in flash_bwd_kernel_launches().items()}
+        route = "_fma_kernel" if dtype == torch.float32 else "_mma_kernel"
+        check(ran == {n: int(n.endswith(route)) for n in ran},
+              f"flash_attention_bwd {dtype} ran {ran}")
     q, k, v = (torch.randn(s, generator=g).to(torch.bfloat16).to(dev)
                for s in ((2, 2048, 16, 128), (2, 2048, 8, 128), (2, 2048, 8, 128)))
     do = torch.randn((2, 2048, 16, 128), generator=g).to(torch.bfloat16).to(dev)
@@ -1593,9 +1615,10 @@ def wkv6_bwd_checks(dev) -> float:
     dv, dw, du) the largest difference within 1e-4 (float32 r, k, v) or
     1e-2 (bfloat16 r, k, v beside float32 w) of the gradient's largest
     value; S from 1 to 2,048, decays near 0 (w = exp(-exp(randn + 2))) and
-    near 1 (exp(-exp(randn / 2 - 4))), every head size in HEAD_DIMS, a
-    final-state gradient given and not; then one call 10 times over,
-    bit-identical each time. Returns the largest absolute difference."""
+    near 1 (exp(-exp(randn / 2 - 4))), every head size in HEAD_DIMS, head
+    counts that are not a multiple of the kernel's cluster, a final-state
+    gradient given and not; then one call 10 times over, bit-identical each
+    time. Returns the largest absolute difference."""
     import torch
 
     from repro_torch.kernels.wkv6 import HEAD_DIMS, wkv6_bwd, wkv6_bwd_plain
@@ -1609,6 +1632,7 @@ def wkv6_bwd_checks(dev) -> float:
         (1, 1, 40, 64, bf16, -4.0, False), (1, 17, 40, 64, f32, -4.0, True),
         (1, 300, 40, 64, bf16, 2.0, True), (1, 2048, 4, 64, bf16, -4.0, False),
         (1, 2048, 2, 64, f32, 2.0, True), (2, 70, 3, 128, f32, -4.0, False),
+        (1, 33, 5, 128, bf16, 2.0, True),
     ]
     seen = set()
 
@@ -4301,8 +4325,8 @@ def train_run(name: str, dev) -> dict:
     kernel_ms = {k: sum(e.device_time_total for e in prof.events()
                         if e.device_type == torch.autograd.DeviceType.CUDA
                         and k in e.name) / 1e3
-                 for k in ("flash_mma_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
-                           "wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_reduce_kernel")}
+                 for k in ("flash_mma_kernel", *BWD_KERNELS["flash_attention_bwd"],
+                           "wkv6_kernel", *BWD_KERNELS["wkv6_bwd"])}
     del prof, params, state
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4557,12 +4581,16 @@ def training(dev) -> dict:
     out["wkv6_bwd"] = time_wkv6_bwd(capture)
     seconds["timing"] = time.perf_counter() - t
     # each backward's device ms a launch, from the profiled training step
-    # (the profiler loses launches of a short trace of back-to-back calls)
-    for key, name, kernels in (
-            ("flash_attention_bwd", "qwen3-1.7b", ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
-            ("wkv6_bwd", "rwkv6-3b", ("wkv6_bwd_kernel", "wkv6_bwd_reduce_kernel"))):
+    # (the profiler loses launches of a short trace of back-to-back calls);
+    # a kernel name that the step's profile lacks would read 0 there
+    for key, name in (("flash_attention_bwd", "qwen3-1.7b"), ("wkv6_bwd", "rwkv6-3b")):
         run = out["runs"][name]
-        out[key]["device_ms"] = (sum(run["kernel_device_ms_per_step"].get(k, 0.0) for k in kernels)
+        kernel_ms = run["kernel_device_ms_per_step"]
+        if run["launches_per_step"][key]:
+            check(all(kernel_ms.get(k, 0.0) > 0.0 for k in BWD_KERNELS[key]),
+                  f"{name}: the profiled step has no device time of {BWD_KERNELS[key]}: "
+                  f"{kernel_ms}")
+        out[key]["device_ms"] = (sum(kernel_ms.get(k, 0.0) for k in BWD_KERNELS[key])
                                  / run["launches_per_step"][key])
     out["seconds"] = seconds
     return out

@@ -18,11 +18,14 @@ V over the padded tile. The model never makes such a row (``S == T``).
 Gradients: on a CPU tensor autograd differentiates the plain version. On a
 CUDA tensor that needs a gradient, :class:`FlashAttention` launches the
 forward kernel, which then also writes each row's log-sum-exp, and its
-backward launches the hand-written kernel ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd`). The JAX package has no backward kernel:
-``jax.grad`` through its Pallas kernel raises and ``repro/kernels/ops.py``
-trains through ``ref.attention`` (``ref.py:16``), whose gradient this is.
-Without a gradient (serving) the forward kernel runs alone, as before.
+backward launches the hand-written kernels ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`): a dQ kernel, then a dK dV kernel, all five
+products on the tensor cores in bfloat16 (float32 FMAs in float32).
+:func:`flash_bwd_walk` mirrors the (query rows, key rows) pieces each of
+them computes. The JAX package has no backward kernel: ``jax.grad`` through
+its Pallas kernel raises and ``repro/kernels/ops.py`` trains through
+``ref.attention`` (``ref.py:16``), whose gradient this is. Without a
+gradient (serving) the forward kernel runs alone, as before.
 
 Bound: operations (about 69 GFLOP a layer at Qwen3-1.7B's 4 x 2,048-token
 prefill, 0.07 ms at the tensor cores' rate). The kernel has one design per
@@ -45,6 +48,53 @@ from repro_torch.kernels import _build
 _SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# csrc/flash_attention_bwd.cu's bfloat16 kernels: warps a block (16 owned
+# rows a warp) of the dQ and the dK dV kernel, and rows of the tiles each
+# streams; _launch_bwd checks them against the library
+BWD_DQ_WARPS = 4
+BWD_DKDV_WARPS = 4
+BWD_TILE = 64
+BWD_KEY_STEP = 64  # keys the dQ kernel takes at a time from a streamed tile
+
+
+def flash_bwd_walk(S: int, T: int, causal: bool, dq_warps: int = BWD_DQ_WARPS,
+                   dkdv_warps: int = BWD_DKDV_WARPS, tile: int = BWD_TILE):
+    """The pieces of one head's score matrix that the bfloat16 backward
+    kernels compute, in launch order, as the kernels' index arithmetic
+    walks them: ``{"dq": [...], "dkdv": [...]}``, each piece ``(q0, q1, k0,
+    k1)``, query rows ``q0 .. q1 - 1`` against keys ``k0 .. k1 - 1`` (cut to
+    ``S`` and ``T``). The dQ kernel's blocks (heaviest causal tiles first)
+    own ``16 * dq_warps`` query rows, 16 a warp, and stream key tiles of
+    ``tile`` keys, ``BWD_KEY_STEP`` at a time; the dK dV kernel's own ``16 *
+    dkdv_warps`` keys and stream query tiles. A warp skips a step or tile
+    none of whose valid rows sees any of its keys."""
+    off = T - S
+    dq, dkdv = [], []
+    own = 16 * dq_warps
+    blocks = -(-S // own)
+    for bx in range(blocks):
+        q0 = (blocks - 1 - bx) * own
+        kend = min(T, q0 + own + off) if causal else T
+        for kt in range(-(-kend // tile) if kend > 0 else 0):
+            for w in range(dq_warps):
+                wq0 = q0 + 16 * w
+                qlast = min(wq0 + 16, S) - 1 + off
+                for k0 in range(kt * tile, (kt + 1) * tile, BWD_KEY_STEP):
+                    if wq0 < S and k0 < T and (not causal or k0 <= qlast):
+                        dq.append((wq0, min(wq0 + 16, S), k0, min(k0 + BWD_KEY_STEP, T)))
+    own = 16 * dkdv_warps
+    n_q = -(-S // tile)
+    for bx in range(-(-T // own)):
+        k0 = bx * own
+        first = max(0, k0 - off) // tile if causal else 0
+        for qt in range(first, n_q):
+            q0 = qt * tile
+            qlast = min(q0 + tile, S) - 1 + off
+            for w in range(dkdv_warps):
+                kw0 = k0 + 16 * w
+                if kw0 < T and (not causal or kw0 <= qlast):
+                    dkdv.append((q0, min(q0 + tile, S), kw0, min(kw0 + 16, T)))
+    return {"dq": dq, "dkdv": dkdv}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -153,8 +203,15 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
         )
     if lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32, got {lse.dtype}")
+    lib = _build.load("flash_attention_bwd")
+    geometry = (lib.flash_attention_bwd_tile(), lib.flash_attention_bwd_key_step(),
+                lib.flash_attention_bwd_dq_warps(), lib.flash_attention_bwd_dkdv_warps())
+    mine = (BWD_TILE, BWD_KEY_STEP, BWD_DQ_WARPS, BWD_DKDV_WARPS)
+    if geometry != mine:
+        raise RuntimeError(f"csrc/flash_attention_bwd.cu has (tile, key step, dq warps, dkdv "
+                           f"warps) {geometry}, this module {mine}")
     smem = _build.function("flash_attention_bwd", "flash_attention_bwd_smem_bytes",
-                           [ctypes.c_int], ctypes.c_longlong)(hd)
+                           [ctypes.c_int] * 2, ctypes.c_longlong)(_DTYPES[q.dtype], hd)
     if not 0 < smem <= _SMEM_LIMIT:
         raise ValueError(f"a backward block would need {smem} bytes of shared memory")
     q, k, v, out, dout, lse = map(_aligned, (q, k, v, out, dout.to(q.dtype), lse))
@@ -183,11 +240,12 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool):
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     """(dq, dk, dv) of :func:`flash_attention` at ``dout``, from the
     forward's ``out`` and ``lse`` (what :class:`FlashAttention` keeps). On
-    a CUDA tensor it launches ``csrc/flash_attention_bwd.cu``: float32
-    arithmetic whatever the input dtype, no atomics (every call gives the
-    same bits); on a CPU tensor it takes :func:`flash_attention_bwd_plain`
-    (``out`` and ``lse`` unused). ``flash_attention_bwd.launches`` counts
-    the CUDA launches.
+    a CUDA tensor it launches ``csrc/flash_attention_bwd.cu``: in bfloat16
+    every product on the tensor cores (bf16 in, float32 accumulate, P and dS
+    rounded to bf16 as the products' inputs), in float32 float32 FMAs; no
+    atomics (every call gives the same bits). On a CPU tensor it takes
+    :func:`flash_attention_bwd_plain` (``out`` and ``lse`` unused).
+    ``flash_attention_bwd.launches`` counts the CUDA launches.
 
     Bound: operations, 2.5 times the forward's: 10 flops per (query, key,
     hd) pair seen (the kernels do 14)."""
@@ -199,6 +257,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
 
 
 flash_attention_bwd.launches = 0
+
+
+def flash_bwd_kernel_launches() -> dict:
+    """Launches of each of ``csrc/flash_attention_bwd.cu``'s four kernels
+    since its library was loaded, by ``__global__`` name, as the library
+    counts them where it launches them: float32 runs the ``_fma_kernel``
+    pair, bfloat16 the ``_mma_kernel`` pair. Builds the library on first
+    use, so it needs ``nvcc``."""
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd_kernel_launches",
+                         [ctypes.c_int] * 2, ctypes.c_longlong)
+    return {f"flash_bwd_{kernel}_{route}_kernel": fn(dtype, which)
+            for route, dtype in (("fma", 0), ("mma", 1))
+            for kernel, which in (("dq", 0), ("dkdv", 1))}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -22,8 +22,11 @@ the times are in ``PERF.md``.
 Gradients: on a CPU tensor autograd differentiates the plain version. On a
 CUDA tensor that needs a gradient, :class:`WKV6` launches the forward kernel
 and, for the gradient, the hand-written kernel ``csrc/wkv6_bwd.cu``
-(:func:`wkv6_bwd`). The JAX package has no backward kernel: ``jax.grad``
-through its Pallas kernel raises and ``repro/kernels/ops.py`` trains through
+(:func:`wkv6_bwd`): one thread block cluster a (batch, head), a block a
+slice of the state's columns, whose row sums are finished inside the
+cluster; :func:`wkv6_bwd_grid` and :func:`wkv6_bwd_cells` mirror its launch
+geometry. The JAX package has no backward kernel: ``jax.grad`` through its
+Pallas kernel raises and ``repro/kernels/ops.py`` trains through
 ``ref.wkv6`` (``ref.py:91``), whose gradient this is.
 """
 
@@ -43,6 +46,14 @@ MAX_THREADS = 256  # kMaxThreads of csrc/wkv6.cu
 ROW_GROUPS = 8  # lanes of one warp that share a column group (kGroups)
 COLUMNS_PER_LANE = 2  # kCols of csrc/wkv6.cu
 MIN_COLUMNS = 8  # a slice's v row is at least one 16-byte cp.async piece
+# csrc/wkv6_bwd.cu: tokens between checkpoints, state columns a block (hd /
+# BWD_SLICE blocks a cluster), columns a thread and rows a thread by head size
+# (BWD_SLICE / BWD_COLS consecutive lanes share a group of rows, hd / rows
+# apart)
+BWD_CHUNK = 8
+BWD_SLICE = 16
+BWD_COLS = 4
+BWD_ROWS = {16: 2, 32: 4, 64: 4, 128: 4}
 
 
 def wkv6_grid(hd: int, heads: int, sm_count: int) -> tuple[int, int]:
@@ -57,6 +68,33 @@ def wkv6_grid(hd: int, heads: int, sm_count: int) -> tuple[int, int]:
     while heads * slices < BLOCKS_PER_SM * sm_count and hd // (2 * slices) >= MIN_COLUMNS:
         slices *= 2
     return hd // slices, slices
+
+
+def wkv6_bwd_grid(hd: int, batch: int, heads: int) -> dict:
+    """The backward kernel's launch: ``hd / BWD_SLICE`` blocks a cluster,
+    one cluster a (batch, head), a block of ``hd / BWD_ROWS[hd] * BWD_SLICE
+    / BWD_COLS`` threads; the grid ``(heads * slices, batch)``."""
+    slices = hd // BWD_SLICE
+    return {"cluster": slices, "threads": hd // BWD_ROWS[hd] * BWD_SLICE // BWD_COLS,
+            "grid": (heads * slices, batch)}
+
+
+def wkv6_bwd_cells(hd: int, block_x: int) -> dict:
+    """``{thread: (head, rows, columns)}`` of block ``block_x`` of the
+    backward kernel's grid, by its index arithmetic: its head and slice from
+    ``block_x``, then ``BWD_SLICE / BWD_COLS`` consecutive lanes a group of
+    ``BWD_ROWS[hd]`` state rows (``i``, ``i + stride``, .., ``stride = hd /
+    BWD_ROWS[hd]``), ``BWD_COLS`` adjacent columns each."""
+    slices = hd // BWD_SLICE
+    groups = BWD_SLICE // BWD_COLS
+    stride = hd // BWD_ROWS[hd]
+    head, j0 = block_x // slices, (block_x % slices) * BWD_SLICE
+    cells = {}
+    for tid in range(wkv6_bwd_grid(hd, 1, 1)["threads"]):
+        i = tid // groups
+        c0 = j0 + (tid % groups) * BWD_COLS
+        cells[tid] = (head, tuple(range(i, hd, stride)), tuple(range(c0, c0 + BWD_COLS)))
+    return cells
 
 
 def wkv6_plain(r, k, v, w, u):
@@ -153,28 +191,39 @@ def _launch_bwd(r, k, v, w, u, do, dstate):
         raise ValueError(f"dstate must be {(B, H, hd, hd)} on {r.device}, got "
                          f"{tuple(dstate.shape)} on {dstate.device}")
     lib = _build.load("wkv6_bwd")
-    chunk, cols = lib.wkv6_bwd_chunk(), lib.wkv6_bwd_slice()
-    r, k, v, w, u, do = (t.contiguous() for t in (r, k, v, w, u, do.to(r.dtype)))
+    geometry = (lib.wkv6_bwd_chunk(), lib.wkv6_bwd_slice(), lib.wkv6_bwd_cols(),
+                lib.wkv6_bwd_rows(hd))
+    mine = (BWD_CHUNK, BWD_SLICE, BWD_COLS, BWD_ROWS[hd])
+    if geometry != mine:
+        raise RuntimeError(f"csrc/wkv6_bwd.cu has (chunk, slice, cols, rows) {geometry}, "
+                           f"this module {mine}")
+    # the kernel stages by 16-byte copies and loads float4 rows of dstate
+    r, k, v, w, u, do = (t.contiguous() if t.data_ptr() % 16 == 0
+                         else t.clone(memory_format=torch.contiguous_format)
+                         for t in (r, k, v, w, u, do.to(r.dtype)))
     if dstate is not None:
         dstate = dstate.float().contiguous()
+        if dstate.data_ptr() % 16:
+            dstate = dstate.clone()
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
     du = torch.empty_like(u)
     if B == 0 or H == 0:
         return dr, dk, dv, dw, du.zero_()
-    slices, chunks = hd // cols, -(-S // chunk)
+    # a float4 of each of a thread's rows at the start of every chunk
+    geo = wkv6_bwd_grid(hd, B, H)
     f32 = dict(dtype=torch.float32, device=r.device)
-    ckpt = torch.empty(B * H * slices * chunks * cols * hd, **f32)
-    part = torch.empty(3 * slices * r.numel(), **f32)
-    du_part = torch.empty(slices * B * H * hd, **f32)
+    ckpt = torch.empty(geo["grid"][0] * geo["grid"][1] * -(-S // BWD_CHUNK) * BWD_ROWS[hd]
+                       * geo["threads"] * 4, **f32)
+    du_part = torch.empty(B * H * hd, **f32)
     fn = _build.function("wkv6_bwd", "wkv6_bwd_launch", [
-        *[ctypes.c_void_p] * 15, *[ctypes.c_int] * 5, ctypes.c_void_p,
+        *[ctypes.c_void_p] * 14, *[ctypes.c_int] * 5, ctypes.c_void_p,
     ])
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                 do.data_ptr(), None if dstate is None else dstate.data_ptr(),
-                ckpt.data_ptr(), part.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
+                ckpt.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
                 _DTYPES[r.dtype], B, S, H, hd, stream)
     if rc != 0:
@@ -187,9 +236,10 @@ def wkv6_bwd(r, k, v, w, u, do, dstate=None):
     """(dr, dk, dv, dw, du) of :func:`wkv6` at the output gradient ``do``
     and the final state's gradient ``dstate`` (None: zeros); ``du`` summed
     over batch and time. On a CUDA tensor it launches ``csrc/wkv6_bwd.cu``
-    (float32 arithmetic, no atomics: every call gives the same bits); on a
-    CPU tensor it takes :func:`wkv6_bwd_plain`. ``wkv6_bwd.launches`` counts
-    the CUDA launches.
+    (float32 arithmetic, no atomics: every call gives the same bits; the
+    slices' row sums meet in the cluster's shared memory, du's batch rows in
+    a small second kernel); on a CPU tensor it takes :func:`wkv6_bwd_plain`.
+    ``wkv6_bwd.launches`` counts the CUDA launches.
 
     Bound: operations, about 14 flops per (token, i, j) at the float32
     rate outside the tensor cores."""

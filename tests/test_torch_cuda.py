@@ -693,6 +693,10 @@ def _close(got, want, tol, name):
     (1, 33, 65, 2, 1, 64, True),  # T > S
     (2, 48, 20, 4, 2, 16, True),  # S > T: the first rows see no key
     (1, 40, 40, 4, 4, 32, False),  # GQA 1
+    (1, 300, 300, 16, 2, 128, True),  # GQA 8
+    (1, 77, 77, 16, 2, 16, True),  # GQA 8 at hd 16, ragged tiles
+    (1, 130, 200, 4, 2, 32, True),  # hd 32, T > S, neither a multiple of a tile
+    (1, 150, 90, 4, 1, 32, True),  # hd 32, S > T, neither a multiple of a tile
 ])
 def test_flash_attention_bwd_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal):
     from repro_torch.kernels.flash_attention import (
@@ -716,6 +720,29 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, B, S, T, H, KV, hd, caus
         assert not bool(q.grad[:, : S - T].any())
 
 
+@pytest.mark.parametrize("dtype,ran,not_ran", [
+    (torch.float32, "_fma_kernel", "_mma_kernel"),
+    (torch.bfloat16, "_mma_kernel", "_fma_kernel"),
+])
+def test_flash_attention_bwd_dispatches_by_dtype(cuda, dtype, ran, not_ran):
+    """float32 runs the FMA kernels, bfloat16 the tensor-core kernels: one
+    pair of kernels a dtype, both launched, no other."""
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_bwd, flash_bwd_kernel_launches)
+
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn((1, 100, 4, 64), generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn((1, 100, 2, 64), generator=g).to(dtype).to(cuda) for _ in range(2))
+    out, lse = _launch(q, k, v, True, with_lse=True)
+    before = flash_bwd_kernel_launches()
+    flash_attention_bwd(q, k, v, out, lse, q)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in flash_bwd_kernel_launches().items()}
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        assert launched[kernel + ran] == 1, launched
+        assert launched[kernel + not_ran] == 0, launched
+
+
 def test_flash_attention_bwd_repeats_bit_identical(cuda):
     from repro_torch.kernels.flash_attention import _launch, flash_attention_bwd
 
@@ -736,6 +763,7 @@ def test_flash_attention_bwd_repeats_bit_identical(cuda):
     (2, 45, 3, 16, True), (2, 45, 3, 32, False), (2, 45, 3, 64, True),
     (1, 19, 2, 128, True), (1, 1, 40, 64, False), (1, 33, 40, 64, False),
     (1, 2048, 4, 64, False),
+    (1, 33, 5, 128, True),  # 5 heads: not a multiple of the 8-block cluster
 ])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_wkv6_bwd_matches_plain(cuda, dtype, B, S, H, hd, strong, with_state):

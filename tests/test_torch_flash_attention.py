@@ -13,7 +13,7 @@ import torch
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_bwd_walk
 
 RNG = np.random.default_rng(0)
 
@@ -167,3 +167,53 @@ def test_rows_that_see_no_key_have_zero_gradients():
     np.testing.assert_allclose(dq[:, 30:].numpy(), want[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(dk.numpy(), want[1], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(dv.numpy(), want[2], rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------ backward tile walk
+# The card's bfloat16 backward kernels compute the score matrix in pieces of
+# 16 rows (a warp's) against a streamed tile; ``flash_bwd_walk`` mirrors their
+# index arithmetic. Each kernel must compute every visible (query, key) pair
+# once, and no piece in which every pair is masked.
+@pytest.mark.parametrize("S,T", [(2048, 2048), (1000, 1000), (100, 100), (33, 65), (130, 200),
+                                 (150, 90), (48, 20), (77, 77), (1, 1), (64, 192)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("warps", [(4, 4), (8, 8), (4, 8)])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_backward_walk_visits_each_visible_pair_once(S, T, causal, warps, tile):
+    walk = flash_bwd_walk(S, T, causal, *warps, tile=tile)
+    qpos = np.arange(S)[:, None] + (T - S)
+    visible = np.arange(T)[None, :] <= qpos if causal else np.ones((S, T), bool)
+    for kernel, pieces in walk.items():
+        seen = np.zeros((S, T), np.int8)
+        for q0, q1, k0, k1 in pieces:
+            assert 0 <= q0 < q1 <= S and 0 <= k0 < k1 <= T, (kernel, q0, q1, k0, k1)
+            assert visible[q0:q1, k0:k1].any(), f"{kernel} computes a masked piece"
+            seen[q0:q1, k0:k1] += 1
+        assert (seen <= 1).all(), f"{kernel} computes a pair twice"
+        assert (seen[visible] == 1).all(), f"{kernel} misses a visible pair"
+    if causal and S == T > 16 * 8:
+        # heaviest first: the dQ kernel starts at the last query rows, the
+        # dK dV kernel at the first keys
+        own = 16 * warps[0]  # query rows a dQ block
+        assert walk["dq"][0][0] // own == max(p[0] for p in walk["dq"]) // own
+        assert walk["dkdv"][0][2] == 0
+
+
+def test_variant_source_rewrites_the_geometry_constants():
+    # tools/flash_bwd_variants.py times the bfloat16 kernels at other warps
+    # and tile sizes by rewriting one constant each in a copy of the source
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "flash_bwd_variants", root / "tools" / "flash_bwd_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (root / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
+    out = tool.variant_source(src, 8, 4, 128)
+    for name, value in (("kDqWarps", 8), ("kDkdvWarps", 4), ("kTile", 128)):
+        assert f"constexpr int {name} = {value};" in out
+    assert len(out.splitlines()) == len(src.splitlines())
+    with pytest.raises(RuntimeError, match="kTile"):
+        tool.variant_source(src.replace("constexpr int kTile", "constexpr int kTileRows"), 4, 4, 64)

@@ -14,11 +14,16 @@ from repro.kernels.rwkv6_chunk import wkv6_chunked
 from repro_torch.kernels import ops
 from repro_torch.kernels.wkv6 import (
     BLOCKS_PER_SM,
+    BWD_COLS,
+    BWD_ROWS,
+    BWD_SLICE,
     COLUMNS_PER_LANE,
     MAX_THREADS,
     MIN_COLUMNS,
     ROW_GROUPS,
     wkv6,
+    wkv6_bwd_cells,
+    wkv6_bwd_grid,
     wkv6_grid,
 )
 
@@ -106,6 +111,40 @@ def test_wkv6_grid_splits_columns_and_rows(hd):
     assert wkv6_grid(hd, 8, 132)[1] > 1
     if hd == 64:  # RWKV6-3B's prefill: 4 x 40 heads, 320 blocks of 4 warps
         assert wkv6_grid(64, 160, 132) == (32, 2)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv6_bwd_cluster_covers_each_state_element_once(hd):
+    # head counts around the card's 132 SMs, and RWKV6-3B's 4 x 40
+    for heads in (1, 3, 131, 132, 133, 160, 264):
+        geo = wkv6_bwd_grid(hd, 4, heads)
+        slices = geo["cluster"]
+        assert slices * BWD_SLICE == hd and 1 <= slices <= 8  # a portable cluster
+        assert geo["threads"] % 32 == 0 and geo["threads"] <= 1024
+        assert geo["grid"] == (heads * slices, 4)
+    for heads in (3, 133):  # neither a multiple of the cluster
+        count = np.zeros((heads, hd, hd), np.int32)
+        for bx in range(wkv6_bwd_grid(hd, 1, heads)["grid"][0]):
+            cells = wkv6_bwd_cells(hd, bx)
+            assert len(cells) == wkv6_bwd_grid(hd, 1, heads)["threads"]
+            for head, rows, cols in cells.values():
+                assert head == bx // (hd // BWD_SLICE)  # a cluster is one head's blocks
+                for row in rows:
+                    count[head, row, list(cols)] += 1
+        assert (count == 1).all()
+    # a row group's threads are consecutive lanes of one warp (its sums are
+    # shuffles), holding adjacent columns; each warp holds 8 row groups (dv's
+    # sum over them is a shuffle too)
+    pairs = {}
+    for tid, (_, rows, cols) in wkv6_bwd_cells(hd, 0).items():
+        pairs.setdefault(rows, []).append((tid, cols))
+    assert len(pairs) == hd // BWD_ROWS[hd] and len(pairs) % 8 == 0
+    for rows, held in pairs.items():
+        assert len(rows) == BWD_ROWS[hd]
+        tids = [t for t, _ in held]
+        assert tids == list(range(tids[0], tids[0] + BWD_SLICE // BWD_COLS))
+        assert tids[0] // 32 == tids[-1] // 32
+        assert all(list(c) == list(range(c[0], c[0] + BWD_COLS)) for _, c in held)
 
 
 # --------------------------------------------------------------- gradients
