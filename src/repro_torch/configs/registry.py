@@ -1,11 +1,13 @@
 """Architectures x input shapes (the 40-cell grid of the JAX package).
 
 Each ported architecture is one module here holding ``CONFIG`` with the
-published dimensions. Only the dense-GQA Qwen3-1.7B and the attention-free
-RWKV6-3B are ported so far; the other eight come with a later slice of
-the port (most need MLA, MoE, Mamba, the encoder or a frontend), and
-``get_config`` raises ``NotImplementedError`` for them. ``long_500k`` needs a
-sub-quadratic token mixer and is a skip for pure full-attention archs.
+published dimensions: the dense-GQA Qwen3-1.7B, ChatGLM3-6B and Qwen2-72B,
+the MLA MiniCPM3-4B, the MoE DeepSeekMoE-16B and Granite-MoE-1B and the
+attention-free RWKV6-3B. The other three (Jamba's Mamba blocks, Whisper's
+encoder, InternVL2's vision frontend) come with a later slice of the port,
+and ``get_config`` raises ``NotImplementedError`` for them. ``long_500k``
+needs a sub-quadratic token mixer and is a skip for pure full-attention
+archs.
 """
 
 from __future__ import annotations
@@ -25,7 +27,15 @@ ARCHS = (
     "whisper-small",
     "rwkv6-3b",
 )
-PORTED_ARCHS = ("qwen3-1.7b", "rwkv6-3b")
+PORTED_ARCHS = (
+    "qwen3-1.7b",
+    "chatglm3-6b",
+    "minicpm3-4b",
+    "qwen2-72b",
+    "deepseek-moe-16b",
+    "granite-moe-1b-a400m",
+    "rwkv6-3b",
+)
 
 
 @dataclass(frozen=True)
@@ -49,9 +59,9 @@ def get_config(name: str):
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     if name not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"{name} is not ported yet: the other architectures (MLA, MoE, "
-            "Mamba, the encoder and frontends, the remaining dense configs) "
-            f"come with a later slice of the port; ported so far: {PORTED_ARCHS}"
+            f"{name} is not ported yet: Mamba blocks, the encoder and "
+            "frontends come with a later slice of the port; ported so far: "
+            f"{PORTED_ARCHS}"
         )
     mod = importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_")

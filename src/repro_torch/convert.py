@@ -158,6 +158,21 @@ def _model_tensor(a) -> torch.Tensor:
     return pool_from_numpy(np.asarray(a))
 
 
+def _group_slice(tree, g: int):
+    """Group ``g``'s slice of each leaf of a stacked dict, nested dicts (an
+    MoE FFN's ``shared`` MLP) included."""
+    if isinstance(tree, dict):
+        return {k: _group_slice(v, g) for k, v in tree.items()}
+    return _model_tensor(np.asarray(tree)[g])
+
+
+def _group_stack(trees: list):
+    """The inverse of :func:`_group_slice`: the layers' leaves stacked."""
+    if isinstance(trees[0], dict):
+        return {k: _group_stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([pool_bits(t) for t in trees])
+
+
 def model_params_from_jax(tree: dict, cfg) -> dict:
     """The port's parameters (CPU tensors) from the JAX package's
     ``init_model`` pytree given as numpy arrays. Group ``g``'s block ``i``
@@ -169,8 +184,7 @@ def model_params_from_jax(tree: dict, cfg) -> dict:
     for g in range(cfg.num_groups):
         for i in range(cfg.group_size):
             layers.append({
-                part: {name: _model_tensor(np.asarray(a)[g])
-                       for name, a in groups[f"b{i}_{part}"].items()}
+                part: _group_slice(groups[f"b{i}_{part}"], g)
                 for part in ("ln1", "mix", "ln2", "ffn") if f"b{i}_{part}" in groups
             })
     params = {
@@ -191,11 +205,8 @@ def params_from_model(params: dict, cfg) -> dict:
     groups = {}
     for i in range(n):
         for part in params["layers"][i]:
-            groups[f"b{i}_{part}"] = {
-                name: np.stack([pool_bits(params["layers"][g * n + i][part][name])
-                                for g in range(G)])
-                for name in params["layers"][i][part]
-            }
+            groups[f"b{i}_{part}"] = _group_stack(
+                [params["layers"][g * n + i][part] for g in range(G)])
     tree = {
         "embed": pool_bits(params["embed"]),
         "final_norm": {k: pool_bits(v) for k, v in params["final_norm"].items()},

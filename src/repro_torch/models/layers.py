@@ -1,13 +1,15 @@
-"""The layers of the dense-GQA and RWKV6 families, as plain functions over
-dicts of tensors (counterpart of :mod:`repro.models.layers`).
+"""The layers of the dense-GQA, MLA, MoE and RWKV6 families, as plain
+functions over dicts of tensors (counterpart of :mod:`repro.models.layers`).
 
 Conventions, as in the JAX package: activations ``x`` are (B, S, D) in the
 compute dtype; norms and softmaxes run in float32; decode takes and returns
-explicit state. Attention and the RWKV6 recurrence go through
+explicit state. GQA attention and the RWKV6 recurrence go through
 :mod:`repro_torch.kernels.ops`, which launches the Hopper kernels on a CUDA
-tensor and their plain versions on a CPU tensor.
+tensor and their plain versions on a CPU tensor. MLA attends over its
+compressed cache in plain float32 and the MoE experts are batched matrix
+products: the JAX package calls no Pallas kernel for either.
 
-Not ported yet (later slices): MLA, MoE, Mamba and the int8 KV cache.
+Not ported yet (later slices): Mamba and the int8 KV cache.
 """
 
 from __future__ import annotations
@@ -71,9 +73,12 @@ def rope_tables(positions, cfg: ModelConfig):
     (B, S), shaped (B, S, 1, rot/2). Every attention layer of a forward or
     decode step rotates at the same positions, so the model computes them
     once a step (the JAX package's ``apply_rope`` recomputes them per call;
-    XLA folds the copies)."""
-    hd = cfg.head_dim
-    rot = hd if cfg.rope_mode == "full" else hd // 2
+    XLA folds the copies). MLA rotates its ``qk_rope_dim`` dims in full
+    mode whatever ``head_dim`` and ``rope_mode`` say."""
+    if cfg.attn_type == "mla":
+        rot = cfg.qk_rope_dim
+    else:
+        rot = cfg.head_dim if cfg.rope_mode == "full" else cfg.head_dim // 2
     cos, sin = rope_cos_sin(positions, rot, cfg.rope_theta)
     return cos[:, :, None, :], sin[:, :, None, :]
 
@@ -97,11 +102,6 @@ def apply_rope(x, tables, mode: str = "full"):
 
 # ----------------------------------------------------------------- attention
 def attn_init(cfg: ModelConfig, generator, device):
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attn_type} attention comes with a later slice "
-            "of the port (MLA)"
-        )
     D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
     dt = param_dtype(cfg)
     p = {
@@ -197,6 +197,177 @@ def mlp_apply(p, x, cfg: ModelConfig):
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")  # jax.nn.gelu's default
     return h @ p["w2"]
+
+
+# ----------------------------------------------------------------------- MLA
+def mla_init(cfg: ModelConfig, generator, device):
+    D, H = cfg.d_model, cfg.num_heads
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    dt = param_dtype(cfg)
+    return {
+        "q_a": dense_init((D, cfg.q_lora_rank), dt, 0, generator, device),
+        "q_norm": torch.ones((cfg.q_lora_rank,), dtype=dt, device=device),
+        "q_b": dense_init((cfg.q_lora_rank, H * qk_dim), dt, 0, generator, device),
+        "kv_a": dense_init((D, cfg.kv_lora_rank + cfg.qk_rope_dim), dt, 0, generator,
+                           device),
+        "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=dt, device=device),
+        "kv_b": dense_init((cfg.kv_lora_rank, H * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                           dt, 0, generator, device),
+        "w_o": dense_init((H * cfg.v_head_dim, D), dt, 0, generator, device),
+    }
+
+
+def _mla_qkv(p, x, cfg: ModelConfig, rope):
+    """The MLA projections: q_nope (B,S,H,nope), q_rope (B,S,H,rope) and
+    the compressed (c_kv (B,S,r), k_rope (B,S,1,rope)) that form the
+    cache; the rope parts rotated by the ``rope`` tables."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    cq = _qk_norm(x @ p["q_a"], p["q_norm"])
+    q = (cq @ p["q_b"]).reshape(B, S, H, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, rope)
+    ckv_full = x @ p["kv_a"]
+    c_kv = _qk_norm(ckv_full[..., :cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = apply_rope(ckv_full[..., None, cfg.kv_lora_rank:], rope)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, cfg: ModelConfig, causal: bool,
+                kv_valid_len=None):
+    """Attention over the compressed cache in float32, kv_b's key part
+    absorbed into the query (the MLA decode identity), as the JAX
+    ``_mla_attend`` writes it. Keys past ``kv_valid_len`` are masked."""
+    B, S, H, _ = q_nope.shape
+    T = c_kv.shape[1]
+    kv_b = p["kv_b"].reshape(cfg.kv_lora_rank, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    k_b = kv_b[..., :cfg.qk_nope_dim].float()  # (r, H, nope)
+    v_b = kv_b[..., cfg.qk_nope_dim:].float()  # (r, H, v)
+    ckv = c_kv.float()
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), k_b)
+    scores = torch.einsum("bshr,btr->bhst", q_lat, ckv)
+    scores = scores + torch.einsum("bshn,btxn->bhst", q_rope.float(), k_rope.float())
+    scores = scores / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if causal:
+        qpos = torch.arange(S, device=scores.device)[:, None]
+        kpos = torch.arange(T, device=scores.device)[None, :]
+        scores = scores.masked_fill(kpos > qpos, -math.inf)
+    if kv_valid_len is not None:
+        kpos = torch.arange(T, device=scores.device)
+        scores = scores.masked_fill(kpos >= kv_valid_len, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", w, ckv)
+    o = torch.einsum("bshr,rhv->bshv", o_lat, v_b)
+    return o.reshape(B, S, H * cfg.v_head_dim).to(q_nope.dtype)
+
+
+def mla_apply(p, x, cfg: ModelConfig, rope, causal: bool = True):
+    """Full-sequence MLA. Returns (out, (c_kv (B,S,r), k_rope (B,S,rope)))."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, rope)
+    o = _mla_attend(p, q_nope, q_rope, c_kv, k_rope, cfg, causal)
+    return o @ p["w_o"], (c_kv, k_rope.squeeze(2))
+
+
+def mla_decode(p, x, cfg: ModelConfig, cache_ckv, cache_krope, cur_len: int, rope):
+    """One-token MLA decode; ``cache_ckv`` (B, S_max, r) and
+    ``cache_krope`` (B, S_max, rope) are updated in place at ``cur_len``
+    (the JAX package's ``_masked_insert``), and the query attends over the
+    first ``cur_len + 1`` positions. Returns the block's output (B, 1, D)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, rope)
+    cache_ckv[:, cur_len] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_krope[:, cur_len] = k_rope[:, 0, 0].to(cache_krope.dtype)
+    o = _mla_attend(p, q_nope, q_rope, cache_ckv.to(c_kv.dtype), cache_krope[:, :, None, :],
+                    cfg, causal=False, kv_valid_len=cur_len + 1)
+    return o @ p["w_o"]
+
+
+# ----------------------------------------------------------------------- MoE
+def moe_init(cfg: ModelConfig, generator, device):
+    D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    dt = param_dtype(cfg)
+    p = {
+        "router": dense_init((D, E), dt, 0, generator, device),
+        "we1": dense_init((E, D, Fd), dt, 1, generator, device),
+        "we3": dense_init((E, D, Fd), dt, 1, generator, device),
+        "we2": dense_init((E, Fd, D), dt, 1, generator, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(cfg, generator, device, d_ff=Fd * cfg.n_shared_experts)
+    return p
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig, capacity_factor: float = 1.25) -> int:
+    """Slots an expert keeps of ``n_tokens`` tokens' picks."""
+    return max(1, int(capacity_factor * n_tokens * cfg.top_k / cfg.n_experts))
+
+
+def moe_route(logits, K: int, C: int):
+    """Token-choice top-K routing of ``logits`` (G, N, E) float32, each of
+    the G groups of N tokens filling its own expert buffers of C slots.
+    Returns (probs (G,N,E), gates (G,N,K), picks (G,N,K), pos (G,N,K),
+    keep (G,N,K)): the gates renormalised over the K picks before any is
+    dropped, and pick (n, k)'s slot in its expert's buffer, counted in
+    (token, k) order; picks at slot C or beyond are dropped.
+    ``jax.lax.top_k`` puts the lower expert first among equal
+    probabilities, as a stable descending sort does (``torch.topk`` does
+    not)."""
+    E = logits.shape[-1]
+    G, N = logits.shape[:2]
+    probs = torch.softmax(logits, dim=-1)
+    gates, picks = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, picks = gates[..., :K], picks[..., :K]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat = F.one_hot(picks, E).reshape(G, N * K, E)
+    # each expert's running count in (token, k) order, scanned along a
+    # contiguous last axis: a scan along axis 1 of (G, N K, E) runs as the
+    # card's slow outer-axis scan (PERF.md §5)
+    pos = torch.cumsum(flat.transpose(1, 2).contiguous(), dim=-1).transpose(1, 2) - flat
+    pos = (pos * flat).sum(-1).reshape(G, N, K)
+    return probs, gates, picks, pos, pos < C
+
+
+def moe_apply(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
+              per_position: bool = False):
+    """Token-choice top-k MoE with capacity-based dispatch (the JAX
+    ``moe_apply``): over x (B, S, D), returns (out, Switch aux loss).
+
+    The capacity applies over all N = B * S tokens, as in the JAX package.
+    With ``per_position``, each position's B tokens route as one group of
+    their own, in batch order, with the capacity of B tokens: what S
+    decode steps compute, one position at a time (the state fill of
+    ``prefill``); the aux loss is then not computed (0).
+
+    As written in the JAX function: a dropped pick adds zeros at slot 0 of
+    expert 0, and the experts run over every slot of their buffers."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    xg = x.transpose(0, 1) if per_position else x.reshape(1, B * S, D)  # (G, N, D)
+    G, N = xg.shape[:2]
+    C = moe_capacity(N, cfg, capacity_factor)
+    logits = (xg @ p["router"]).float()
+    probs, gates, picks, pos, keep = moe_route(logits, K, C)
+    # dispatch (G, N, K) -> the experts' buffers (E, G, C, D)
+    e_idx = torch.where(keep, picks, 0)
+    s_idx = torch.where(keep, pos, 0)
+    g_idx = torch.arange(G, device=x.device)[:, None, None].expand(G, N, K)
+    vals = torch.where(keep[..., None], xg[:, :, None, :], 0).to(x.dtype)
+    disp = torch.zeros((E, G, C, D), dtype=x.dtype, device=x.device)
+    disp.index_put_((e_idx, g_idx, s_idx), vals, accumulate=True)
+    flat = disp.reshape(E, G * C, D)
+    h = F.silu(torch.bmm(flat, p["we1"])) * torch.bmm(flat, p["we3"])
+    eout = torch.bmm(h, p["we2"]).reshape(E, G, C, D)
+    # combine, in float32 as the JAX function promotes it
+    gathered = eout[e_idx, g_idx, s_idx]  # (G, N, K, D)
+    combined = (gathered * torch.where(keep, gates, 0.0)[..., None]).sum(-2)
+    out = combined.to(x.dtype)
+    out = out.transpose(0, 1) if per_position else out.reshape(B, S, D)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x, cfg)
+    if per_position:
+        return out, torch.zeros((), dtype=torch.float32, device=x.device)
+    me = probs[0].mean(0)
+    ce = (F.one_hot(picks[0], E).sum(1) > 0).float().mean(0)
+    return out, E * torch.sum(me * ce)
 
 
 # --------------------------------------------------------------------- RWKV6

@@ -797,3 +797,61 @@ def test_wkv6_bwd_repeats_bit_identical(cuda):
     for _ in range(10):
         again = wkv6_bwd(*args, do, ds)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# ------------------------------------------------ the MoE, MLA and dense archs
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd", [(16, 16, 128), (16, 8, 64), (32, 2, 128), (64, 8, 128)])
+def test_flash_attention_at_the_new_archs_heads(cuda, dtype, H, KV, hd):
+    """DeepSeekMoE-16B, Granite-MoE-1B, ChatGLM3-6B and Qwen2-72B's (query
+    heads, KV heads, head size), causal over a ragged 300 tokens."""
+    g = torch.Generator().manual_seed(H * KV + hd)
+    q = torch.randn((2, 300, H, hd), generator=g).to(dtype).to(cuda)
+    k = torch.randn((2, 300, KV, hd), generator=g).to(dtype).to(cuda)
+    v = torch.randn((2, 300, KV, hd), generator=g).to(dtype).to(cuda)
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["normal", "small_integers", "zero"])
+def test_moe_routing_on_the_card_equals_the_cpu(cuda, case):
+    """moe_route at DeepSeekMoE-16B's E = 64, K = 6 over 8,192 tokens: the
+    top-k experts, slots and kept mask equal on both devices; small
+    integer logits tie in most rows, a zero router ties everywhere."""
+    from repro_torch.models.layers import moe_route
+
+    g = torch.Generator().manual_seed(41)
+    N, E, K = 8192, 64, 6
+    logits = {"normal": torch.randn((1, N, E), generator=g),
+              "small_integers": torch.randint(0, 4, (1, N, E), generator=g).float(),
+              "zero": torch.zeros((1, N, E))}[case]
+    C = max(1, int(1.25 * N * K / E))
+    cpu = moe_route(logits, K, C)
+    card = moe_route(logits.to(cuda), K, C)
+    for name, a, b in zip(("picks", "pos", "keep"), cpu[2:], card[2:]):
+        assert torch.equal(a, b.cpu()), name
+    if case == "zero":
+        assert bool((card[2] == torch.arange(K, device=cuda)).all())
+        assert bool(card[4][0, :C].all()) and not bool(card[4][0, C:].any())
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "granite-moe-1b-a400m"])
+def test_moe_layer_on_the_card_equals_the_cpu(cuda, name):
+    """moe_apply in float32 at the arch's .scaled() size, over all tokens
+    and per position: output and aux loss within 1e-4 of the CPU's (a pick
+    routed otherwise would move its token's output by order 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config(name).scaled(param_dtype="float32", compute_dtype="float32")
+    p = L.moe_init(cfg, torch.Generator().manual_seed(42), "cpu")
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator().manual_seed(43))
+    pc = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else {n: w.to(cuda) for n, w in v.items()})
+          for k, v in p.items()}
+    for per_position in (False, True):
+        got, aux = L.moe_apply(pc, x.to(cuda), cfg, per_position=per_position)
+        want, aux_cpu = L.moe_apply(p, x, cfg, per_position=per_position)
+        assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        assert torch.allclose(aux.cpu(), aux_cpu, rtol=1e-4, atol=1e-4)

@@ -2,6 +2,11 @@
 package at ``.scaled()`` size, on the CPU, with the JAX parameters carried
 across by ``convert.model_params_from_jax`` and the same numpy tokens.
 
+``FAMILIES`` stays these two: the five architectures of the MoE, MLA and
+remaining dense configs run the same checks, and their own, in
+``test_torch_models_moe_mla.py``, a file of its own so that ``--dist
+loadfile`` gives the two files to different workers.
+
 Tolerances:
 
 * float32 (``.scaled(param_dtype="float32", compute_dtype="float32")``):
@@ -87,15 +92,14 @@ def test_registry_matches_on_the_ported_archs():
     assert configs.arch_shape_cells() == want
 
 
-@pytest.mark.parametrize("name", [a for a in jconfigs.ARCHS if a not in FAMILIES])
+@pytest.mark.parametrize("name", [a for a in jconfigs.ARCHS if a not in configs.PORTED_ARCHS])
 def test_other_archs_wait_for_a_later_slice(name):
     with pytest.raises(NotImplementedError, match="later slice"):
         configs.get_config(name)
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(attn_type="mla"), dict(n_experts=4, top_k=2), dict(block_pattern=("attn", "mamba")),
-    dict(encoder_layers=2), dict(kv_cache_dtype="int8"),
+    dict(block_pattern=("attn", "mamba")), dict(encoder_layers=2), dict(kv_cache_dtype="int8"),
 ])
 def test_unported_blocks_raise(overrides):
     cfg = ModelConfig(name="x", family="dense", num_layers=2, d_model=64, num_heads=4,
