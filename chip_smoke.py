@@ -22,7 +22,9 @@ Phases, each of which must pass (any failure exits non-zero):
    sequences over three or more splits ending mid-page, and against the
    plain version of its split-and-merge), ``flash_attention`` (causal and
    not, T > S, ragged tails, grouped heads, rows that see no key, multi-tile
-   causal at 1,000 and 2,047 tokens) and ``wkv6`` (bf16 r, k, v beside f32
+   causal at 1,000 and 2,047 tokens, and the Whisper-small and InternVL2-1B
+   layouts: one query and 416 queries over 1,500 keys, 1,500 over 1,500
+   non-causal, 14 query heads over 2 KV heads at 2,304) and ``wkv6`` (bf16 r, k, v beside f32
    w, strong decays, S from 1 to 2,048, every head size with its columns
    split over blocks, 10 bit-identical repeats) in bfloat16 and float32
    within stated tolerances; ``strided_probe`` also at page rows of 1,000
@@ -177,26 +179,37 @@ Phases, each of which must pass (any failure exits non-zero):
     giving the same gradients bit for bit; (d) Qwen3-1.7B at full width and
     2 layers interrupted after 2 steps and resumed from its
     ``CheckpointManager`` checkpoint to the uninterrupted run's losses bit
-    for bit (the checkpoint's bytes, restore and save seconds); (e) both
+    for bit (the checkpoint's bytes, each run's seconds); (e) both
     backward kernels timed on the first layer's training inputs beside
     autograd of their plain versions, their bounds and, for attention, the
     backward of ``scaled_dot_product_attention``; the profiled training
     step must hold device time of every backward kernel it launched;
-15. the MoE, MLA and remaining dense archs on the card: (d) DeepSeekMoE-
-    16B, Granite-MoE-1B, MiniCPM3-4B, ChatGLM3-6B and Qwen2-72B at full
-    width and 2 layers in float32, the same weights on the CPU and the card
-    (as phase 3), each MoE arch's routing (every pick, slot and kept mask
-    of the forward, the fill and the decode loop) equal on both lanes, then
+15. the other archs on the card: (d) DeepSeekMoE-16B, Granite-MoE-1B,
+    MiniCPM3-4B, ChatGLM3-6B and Qwen2-72B at full width and 2 layers in
+    float32, the same weights on the CPU and the card (as
+    phase 3), each MoE arch's routing (every pick, slot and kept mask of
+    the forward, the fill and the decode loop) equal on both lanes, then
     again with zero routers (every probability tied: experts 0 .. K-1 on
-    both); (a-c) each served as phase 8 serves the two families, at full
-    width and depth (Qwen2-72B at 8 of its 80 layers), the kernel-path
-    forward against the plain path and both against float32, the weights
-    cast to float32 a layer at a time (a float32 copy of DeepSeekMoE-16B
-    would not fit beside its bfloat16 weights), with ``flash_attention``
-    launched once a GQA layer and never for MiniCPM3's MLA; its prefill
-    tokens/s, decode ms a step, busy shares and peak memory printed; and
-    ``flash_attention`` timed at each GQA arch's first-layer inputs beside
-    its plain version and ``scaled_dot_product_attention``.
+    both); (a-c) each of them, Whisper-small (12 encoder and 12 decoder
+    layers, 1,500 frame embeddings from a seed, a 416-token prompt) and
+    InternVL2-1B (256 patch embeddings from a seed before the 2,048-token
+    prompt) served as phase 8 serves the two families, at full width and
+    depth (Qwen2-72B at 8 of its 80 layers), the kernel-path forward
+    against the plain path and both against float32, the weights cast to
+    float32 a layer at a time (a float32 copy of DeepSeekMoE-16B would not
+    fit beside its bfloat16 weights), with ``flash_attention`` launched
+    once a GQA layer (Whisper: 12 encoder, 12 causal and 12
+    cross-attention launches in the prefill, 12 cross-attention launches a
+    decode step) and never for MiniCPM3's MLA; for the two archs with a
+    frontend, a decode step after the fill held against the forward over
+    the prompt and that token; its prefill tokens/s, decode ms a step,
+    busy shares and peak memory printed; ``flash_attention`` timed at each
+    new layout beside its plain version and
+    ``scaled_dot_product_attention``; (e) Qwen3-1.7B at full width and
+    depth with the int8 KV cache: the cache's bytes against bfloat16's,
+    the one-forward fill's dequantized cache within one quantization step
+    of the bfloat16 cache and held against the int8 decode loop, and 32
+    decode steps against the bfloat16-cache decode of the same tokens.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit (``nvidia-smi``), and
@@ -255,9 +268,28 @@ MODEL_FAMILIES = ("qwen3-1.7b", "rwkv6-3b")
 # the two families; Qwen2-72B at 8 of its 80 layers (all 80 take about 145
 # GB in bfloat16, one card has 80)
 MORE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m", "minicpm3-4b", "chatglm3-6b",
-              "qwen2-72b")
+              "qwen2-72b", "whisper-small", "internvl2-1b")
+# the archs whose CPU and CUDA lanes phase 15 compares: those without a
+# frontend
+LANE_ARCHS_15 = MORE_ARCHS[:5]
 ARCH_LAYERS = {"qwen2-72b": 8}
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
+# Whisper's text context is 448 tokens: a 416-token prompt and 32 new ones
+PROMPT_LENS = {"whisper-small": 416}
+# Phase 15 (e): the int8 KV cache's decode logits against the bfloat16
+# cache's on the same weights and tokens, relative L2 over the 32 steps.
+# An int8 step is at most amax / 127 of a (position, head) row, against
+# bfloat16's 2^-8 of each value: about 0.7% of the rows' RMS against 0.2%,
+# in the attention's keys and values only, where the bfloat16 path rounds
+# every product (0.019 relative L2 from float32 at Qwen3-1.7B's logits,
+# phase 8). A cache read at the wrong position or scale moves the logits
+# by order 1.
+INT8_LOGIT_TOL = 0.1
+# A dequantized value q s_b (bfloat16 product) against the value x it
+# quantized, in steps s of its row: rint leaves |q s - x| <= s / 2 in
+# float32; storing s in bfloat16 (s_b) moves q s by up to 127 s 2^-8, and
+# rounding the product to bfloat16 by as much again: under 1.5 steps
+INT8_STEP_BOUND = 1.5
 ORACLE_LEN = 64  # prompt tokens the decode-loop oracle of the state fill replays
 PROFILED_STEPS = 4  # decode steps read by the profiler; the rest are timed
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -1460,10 +1492,13 @@ def probe_tiers(dev) -> dict:
 def flash_checks(dev) -> float:
     """flash_attention == its plain version within 2e-4 (float32) or 2e-2
     (bfloat16): causal and not, T > S, ragged tails, grouped heads, hd in
-    {16, 32, 64, 128}, rows that see no key (S > T, zeros in both), and
+    {16, 32, 64, 128}, rows that see no key (S > T, zeros in both),
     causal sequences of 1,000 and 2,047 tokens (many key tiles through the
-    bf16 kernel's cp.async ring, ragged last tiles).
-    Returns the largest absolute difference."""
+    bf16 kernel's cp.async ring, ragged last tiles), and the layouts of
+    phase 15's Whisper-small (one query over 1,500 keys, as each decode
+    step's cross-attention; 1,500 over 1,500 non-causal, 1,500 = 23 x 64 +
+    28; 416 over 1,500) and InternVL2-1B (14 query heads over 2 KV heads,
+    causal over 2,304). Returns the largest absolute difference."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -1479,6 +1514,8 @@ def flash_checks(dev) -> float:
         (2, 48, 20, 4, 2, 16, True), (1, 70, 131, 16, 8, 128, False),
         (1, 257, 257, 16, 8, 128, True), (2, 40, 40, 4, 4, 32, True),
         (1, 1000, 1000, 16, 8, 128, True), (1, 2047, 2047, 16, 8, 128, True),
+        (4, 1, 1500, 12, 12, 64, False), (4, 1500, 1500, 12, 12, 64, False),
+        (4, 416, 1500, 12, 12, 64, False), (2, 2304, 2304, 14, 2, 64, True),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, T, H, KV, hd, causal in cases:
@@ -1954,17 +1991,47 @@ def _logit_agreement(a, b) -> dict:
             "top1_agree": same / n}
 
 
+def frontend_inputs(cfg, gen, dev) -> dict:
+    """The frontend's input of an encoder arch (``frames``) or a VLM
+    (``extra_embeds``): SERVE_BATCH x ``frontend_len`` normal embeddings
+    drawn from ``gen`` on the card, in the compute dtype (the token
+    embeddings times sqrt(D) have unit scale too); {} for a text-only
+    arch."""
+    import torch
+
+    if cfg.frontend == "none":
+        return {}
+    key = "frames" if cfg.has_encoder else "extra_embeds"
+    x = torch.randn((SERVE_BATCH, cfg.frontend_len, cfg.d_model), generator=gen, device=dev)
+    return {key: x.to(getattr(torch, cfg.compute_dtype))}
+
+
+def attention_launches(cfg) -> tuple:
+    """``flash_attention`` launches of (a prefill, a decode step): one a GQA
+    layer (none for MLA), one an encoder layer and one a cross-attention
+    layer in the prefill; a decode step launches one a cross-attention
+    layer (its self-attention reads the cache in plain PyTorch)."""
+    layers = sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
+    cross = layers if cfg.has_encoder else 0
+    return (layers if cfg.attn_type == "gqa" else 0) + cfg.encoder_layers + cross, cross
+
+
 def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) -> dict:
     """One arch at full width (and ``num_layers`` layers, all by default)
-    through repro_torch.launch.serve: 4 prompts of 2,048 tokens prefilled
-    (the kernel counts set to 0 just before the counted call and read just
-    after: a ``flash_attention`` launch a GQA layer, none for MLA, a
-    ``wkv6`` launch an RWKV layer), the kernel-path forward held against
-    the plain-path forward on the card, both against float32 (the
-    weights cast a layer at a time, ``float32_view``), the decode state
-    filled by one forward (``prefill``) and held against the decode loop
-    on the first ORACLE_LEN tokens (``fill_oracle``), then 32 greedy
-    decode steps. ``capture`` receives the first layer's kernel inputs."""
+    through repro_torch.launch.serve: 4 prompts of 2,048 tokens (Whisper:
+    416, after 1,500 frames; InternVL2: after 256 patch embeddings)
+    prefilled (the kernel counts set to 0 just before the counted call and
+    read just after: see ``attention_launches``, and a ``wkv6`` launch an
+    RWKV layer), the kernel-path forward held against the plain-path
+    forward on the card, both against float32 (the weights cast a layer at
+    a time, ``float32_view``), the decode state filled by one forward
+    (``prefill``) and held against the decode loop on the first ORACLE_LEN
+    tokens (``fill_oracle``), with a frontend a decode step after the fill
+    held against the forward over the prompt and that token
+    (``continuation_check``), then 32 greedy decode steps (their
+    ``flash_attention`` launches counted). ``capture`` receives the first
+    layer's kernel inputs and, under ``"flash_layouts"``, the first call
+    of each (S, T, causal) layout of ``flash_attention``."""
     from dataclasses import replace
 
     import torch
@@ -1985,21 +2052,30 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
     cfg = get_config(name)
     if num_layers is not None:
         cfg = replace(cfg, num_layers=num_layers)
+    prompt_len = PROMPT_LENS.get(name, PROMPT_LEN)
+    prefix = cfg.frontend_len if cfg.frontend == "vision_stub" else 0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_all = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(31)
     params = init_model(cfg, generator=gen, device=None)
-    fns = make_serve_fns(cfg, SERVE_BATCH, PROMPT_LEN + NEW_TOKENS)
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), generator=gen,
+    fns = make_serve_fns(cfg, SERVE_BATCH, prefix + prompt_len + NEW_TOKENS)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt_len), generator=gen,
                            device=dev)
+    inputs = frontend_inputs(cfg, gen, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_all
+    layouts = capture.setdefault("flash_layouts", {})
 
     def recording(kernel, key):
         def call(*args, **kw):
-            if key not in capture:
+            if key == "flash_attention":
+                layout = (args[0].shape[1], args[1].shape[1], kw.get("causal", True))
+                if layout not in layouts:
+                    layouts[layout] = ([a.clone() for a in args], kw)
+                capture.setdefault(key, layouts[layout])
+            elif key not in capture:
                 capture[key] = ([a.clone() for a in args], kw)
             return kernel(*args, **kw)
         return call
@@ -2011,20 +2087,19 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
     flash_attention.launches = 0
     wkv6.launches = 0
     t = time.perf_counter()
-    first = fns["prefill"](params, tokens)
+    first = fns["prefill"](params, tokens, **inputs)
     torch.cuda.synchronize()
     prefill_cold_s = time.perf_counter() - t
     launches = {"flash_attention": flash_attention.launches, "wkv6": wkv6.launches}
     ops.attention, ops.wkv6 = flash_attention, wkv6
-    n_attn = (sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
-              if cfg.attn_type == "gqa" else 0)
+    n_attn, n_cross = attention_launches(cfg)
     n_rwkv = sum(k == "rwkv" for k in cfg.block_pattern) * cfg.num_groups
     check(launches == {"flash_attention": n_attn, "wkv6": n_rwkv},
           f"{name}: prefill launched {launches}, want {n_attn} flash_attention "
           f"and {n_rwkv} wkv6")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fns["prefill"](params, tokens)
+        fns["prefill"](params, tokens, **inputs)
         torch.cuda.synchronize()
     prefill_device_ms = _device_us(prof) / 1e3
     traced = [e for e in prof.events()
@@ -2035,7 +2110,7 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
     top_kernels = _top_kernels(prof)
     del prof
     t = time.perf_counter()
-    again = fns["prefill"](params, tokens)
+    again = fns["prefill"](params, tokens, **inputs)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     check(bool(torch.isfinite(first).all())
@@ -2046,15 +2121,15 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
 
     # 2. the same forward through the plain versions on the card, in
     # bfloat16 and, on float32 copies of the weights, in float32
-    logits_k, _ = forward(params, cfg, tokens)
+    logits_k, _ = forward(params, cfg, tokens, **inputs)
     ops.attention, ops.wkv6 = flash_attention_plain, wkv6_plain
     t = time.perf_counter()
-    logits_p, _ = forward(params, cfg, tokens)
+    logits_p, _ = forward(params, cfg, tokens, **inputs)
     torch.cuda.synchronize()
     plain_forward_s = time.perf_counter() - t
     params32 = float32_view(params)
     cfg32 = replace(cfg, param_dtype="float32", compute_dtype="float32")
-    logits_32, _ = forward(params32, cfg32, tokens)
+    logits_32, _ = forward(params32, cfg32, tokens, **inputs)
     ops.attention, ops.wkv6 = flash_attention, wkv6
     path = _logit_agreement(logits_k, logits_p)
     kernel_vs_f32 = _logit_agreement(logits_k, logits_32)
@@ -2069,28 +2144,33 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
     # ORACLE_LEN tokens
     state = fns["init_state"]()
     t = time.perf_counter()
-    last, state = prefill(params, cfg, tokens, state)
+    last, state = prefill(params, cfg, tokens, state, **inputs)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t
     fill = _logit_agreement(last, first)
     check(bool(torch.isfinite(last).all()), f"{name}: prefill not finite")
-    check(all(bool(torch.isfinite(v).all()) for v in state.values()),
+    check(all(bool(torch.isfinite(v.float()).all()) for v in state.values()),
           f"{name}: prefill's decode state not finite")
-    oracle = fill_oracle(params, params32, cfg, cfg32, tokens[:, :ORACLE_LEN], dev)
+    oracle = fill_oracle(params, params32, cfg, cfg32, tokens[:, :ORACLE_LEN], dev,
+                         frames=inputs.get("frames"))
+    continuation = (continuation_check(params, params32, cfg, cfg32, tokens, inputs, last,
+                                       state, prefix + prompt_len)
+                    if inputs else None)
     del params32
 
     # 4. 32 greedy decode steps: the first PROFILED_STEPS under the profiler
-    # (device time), the rest timed (wall)
+    # (device time), the rest timed (wall); flash_attention counted over all
     tok = last[:, -1].argmax(-1, keepdim=True)
     new = [tok]
 
     def step(i):
         nonlocal tok, logits, state
-        logits, state = fns["decode"](params, state, tok, PROMPT_LEN + i)
+        logits, state = fns["decode"](params, state, tok, prefix + prompt_len + i)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         new.append(tok)
 
     logits = None
+    flash_attention.launches = 0
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for i in range(PROFILED_STEPS):
@@ -2103,6 +2183,10 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
         step(i)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / (NEW_TOKENS - PROFILED_STEPS)
+    decode_launches = flash_attention.launches
+    check(decode_launches == NEW_TOKENS * n_cross,
+          f"{name}: {NEW_TOKENS} decode steps launched flash_attention {decode_launches} "
+          f"times, want {n_cross} a step")
     out_tokens = torch.cat(new, dim=1)
     check(bool(torch.isfinite(logits).all())
           and bool(((out_tokens >= 0) & (out_tokens < cfg.vocab_size)).all()),
@@ -2111,11 +2195,13 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
         "params": param_count(params),
         "active_params": active_param_count(params, cfg),
         "layers": cfg.num_layers,
-        "requests": SERVE_BATCH, "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS,
+        "encoder_layers": cfg.encoder_layers,
+        "requests": SERVE_BATCH, "prompt_len": prompt_len, "new_tokens": NEW_TOKENS,
+        "frontend": {k: list(v.shape) for k, v in inputs.items()},
         "init_s": init_s,
         "prefill_cold_s": prefill_cold_s,
         "prefill_s": prefill_s,
-        "prefill_tokens_per_s": SERVE_BATCH * PROMPT_LEN / prefill_s,
+        "prefill_tokens_per_s": SERVE_BATCH * prompt_len / prefill_s,
         "prefill_device_ms": prefill_device_ms,
         "prefill_device_busy_share": prefill_device_ms / 1e3 / prefill_s,
         "prefill_kernel_device_ms": kernel_device_ms,
@@ -2123,6 +2209,7 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
         "prefill_top_device_ms": top_kernels,
         "prefill_repeat_max_abs_diff": repeat_diff,
         "launches": launches,
+        "decode_flash_attention_launches_per_step": decode_launches / NEW_TOKENS,
         "kernel_vs_plain_path": path,
         "kernel_path_vs_f32": kernel_vs_f32,
         "plain_path_vs_f32": plain_vs_f32,
@@ -2130,6 +2217,7 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
         "state_fill_s": fill_s,
         "state_fill_vs_prefill_fn_last_logits": fill,
         "state_fill_oracle": oracle,
+        "continuation": continuation,
         "decode_ms_per_step": decode_ms,
         "decode_device_ms_per_step": decode_device_ms,
         "decode_device_busy_share": decode_device_ms / decode_ms,
@@ -2137,10 +2225,39 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "wall_s": time.perf_counter() - t_all,
     }
-    del params, state, first, last, logits, tokens
+    del params, state, first, last, logits, tokens, inputs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return result
+
+
+def continuation_check(params, params32, cfg, cfg32, tokens, inputs, last, state,
+                       cur_len: int) -> dict:
+    """A decode step after the one-forward fill, at ``cur_len`` (the
+    prompt's positions, patch embeddings included), against the forward
+    over the prompt and that step's token: both in bfloat16 against the
+    float32 forward, the step's distance (relative L2) at most
+    MODEL_PATH_FACTOR times the bfloat16 forward's. ``state`` is copied;
+    the fill's own state decodes on afterwards."""
+    import torch
+
+    from repro_torch.models import decode_step, forward
+
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    st = {k: v.clone() for k, v in state.items()}
+    step, _ = decode_step(params, cfg, st, tok, cur_len)
+    del st
+    longer = torch.cat([tokens, tok], dim=1)
+    with torch.inference_mode():
+        fwd = forward(params, cfg, longer, **inputs)[0][:, -1:]
+        fwd32 = forward(params32, cfg32, longer, **inputs)[0][:, -1:]
+    row = {"decode_step": _rel_l2(step, fwd32), "forward": _rel_l2(fwd, fwd32),
+           "top1_agree": float((step[:, -1].argmax(-1) == fwd32[:, -1].argmax(-1)).float().mean())}
+    check(row["decode_step"] <= MODEL_PATH_FACTOR * row["forward"],
+          f"{cfg.name}: a decode step after the fill is {row['decode_step']:.3g} from the "
+          f"float32 forward over the prompt and its token, beyond {MODEL_PATH_FACTOR} x "
+          f"the bfloat16 forward's {row['forward']:.3g}")
+    return row
 
 
 def _rel_l2(a, b) -> float:
@@ -2150,18 +2267,20 @@ def _rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-300))
 
 
-def fill_oracle(params, params32, cfg, cfg32, prompt, dev) -> dict:
+def fill_oracle(params, params32, cfg, cfg32, prompt, dev, frames=None) -> dict:
     """``prefill`` (one forward) against ``prefill_stepwise`` (the decode
-    loop, one step a token) on ``prompt``, in bfloat16 at full size: each
-    is held against the float32 decode loop, and the one-forward fill's
-    distance (relative L2, last logits and every state tensor) must be at
-    most MODEL_PATH_FACTOR times the decode loop's. Also reports the
-    float32 fills' distance from each other."""
+    loop, one step a token) on ``prompt`` (and an encoder arch's
+    ``frames``, whose cross state both write first), in bfloat16 at full
+    size: each is held against the float32 decode loop, and the
+    one-forward fill's distance (relative L2, last logits and every state
+    tensor) must be at most MODEL_PATH_FACTOR times the decode loop's.
+    Also reports the float32 fills' distance from each other."""
     import torch
 
     from repro_torch.models import init_decode_state, prefill, prefill_stepwise
 
     B, S = prompt.shape
+    enc_len = frames.shape[1] if frames is not None else 0
     out = {"tokens": S}
     runs = {}
     for key, fill, p, c in (("one", prefill, params, cfg),
@@ -2169,7 +2288,8 @@ def fill_oracle(params, params32, cfg, cfg32, prompt, dev) -> dict:
                             ("one32", prefill, params32, cfg32),
                             ("loop32", prefill_stepwise, params32, cfg32)):
         t = time.perf_counter()
-        last, st = fill(p, c, prompt, init_decode_state(c, B, S, device=dev))
+        last, st = fill(p, c, prompt, init_decode_state(c, B, S, enc_len, device=dev),
+                        frames=frames)
         torch.cuda.synchronize()
         out[f"{key}_s"] = time.perf_counter() - t
         runs[key] = {"last_logits": last, **st}
@@ -2195,15 +2315,16 @@ def _visible_pairs(S: int, T: int, causal: bool) -> int:
     return sum(min(T, max(0, s + T - S + 1)) for s in range(S))
 
 
-def time_flash(capture: dict) -> dict:
-    """flash_attention on the first Qwen3-1.7B layer's prefill inputs,
-    beside its plain version, its bound and scaled_dot_product_attention
-    (a yardstick only; the port never calls it)."""
+def time_flash(call) -> dict:
+    """flash_attention on the ``call`` ((q, k, v), kwargs) a serving
+    prefill made (phase 9: the first Qwen3-1.7B layer's), beside its plain
+    version, its bound and scaled_dot_product_attention (a yardstick only;
+    the port never calls it)."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
-    (q, k, v), kw = capture["flash_attention"]
+    (q, k, v), kw = call
     causal = kw.get("causal", True)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -2285,23 +2406,134 @@ def time_wkv6(capture: dict) -> dict:
 
 
 def more_archs(dev) -> dict:
-    """Phase 15: (d) the CPU and CUDA lanes of MORE_ARCHS at full width and
-    LANE_LAYERS layers, then (a-c) each served at full width (ARCH_LAYERS
-    cuts the depth) through ``serve_model``, and ``flash_attention`` timed
-    on each GQA arch's first-layer prefill inputs."""
+    """Phase 15: (d) the CPU and CUDA lanes of LANE_ARCHS_15 at full width
+    and LANE_LAYERS layers, then (a-c) each of
+    MORE_ARCHS served at full width (ARCH_LAYERS cuts the depth) through
+    ``serve_model``, ``flash_attention`` timed at each layout the prefill
+    gave it (and, for an encoder arch, at the decode step's: the prefill's
+    cross-attention keys and values and its last query row), and (e) the
+    int8 KV cache (``int8_lane``)."""
     out, seconds = {"served": {}, "flash_attention": {}}, {}
     t = time.perf_counter()
-    out["lanes"] = model_lanes_agree(dev, MORE_ARCHS, draw_on=dev)
+    out["lanes"] = model_lanes_agree(dev, LANE_ARCHS_15, draw_on=dev)
     seconds["lanes"] = time.perf_counter() - t
     for name in MORE_ARCHS:
         t = time.perf_counter()
         capture: dict = {}
         out["served"][name] = serve_model(name, dev, capture, ARCH_LAYERS.get(name))
-        if "flash_attention" in capture:
-            out["flash_attention"][name] = time_flash(capture)
-        del capture
+        layouts = capture["flash_layouts"]
+        for (S, T, causal), ((q, k, v), kw) in list(layouts.items()):
+            if not causal and S not in (1, T):  # cross-attention; a decode step's: 1 query
+                layouts.setdefault((1, T, causal), ((q[:, -1:].contiguous(), k, v), kw))
+        for (S, T, causal), call in layouts.items():
+            key = name if len(layouts) == 1 else f"{name} {S}x{T}{' causal' if causal else ''}"
+            out["flash_attention"][key] = time_flash(call)
+        del capture, layouts
         seconds[name] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["int8"] = int8_lane(dev)
+    seconds["int8"] = time.perf_counter() - t
     out["seconds"] = seconds
+    return out
+
+
+def int8_lane(dev) -> dict:
+    """(e) Qwen3-1.7B at full width and depth, the same weights (from a
+    seed on the card) and 4 x 2,048-token prompts served with the bfloat16
+    and the int8 KV cache through ``make_serve_fns``: each state filled by
+    one forward (``flash_attention`` counted: 28 launches each), every
+    dequantized int8 key and value of the first layer within
+    INT8_STEP_BOUND quantization steps (its scale) of the bfloat16 cache's (the later
+    layers' distance reported), the int8 fill held against its decode
+    loop on ORACLE_LEN tokens (``fill_oracle``), then 32 decode steps of
+    the bfloat16 path's greedy tokens on both, the int8 logits within
+    INT8_LOGIT_TOL (relative L2) of the bfloat16 ones. The caches' bytes,
+    each path's decode ms a step and peak memory."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import make_serve_fns
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models.layers import dequantize_kv
+
+    cfg = get_config("qwen3-1.7b")
+    cfgs = {"bfloat16": cfg, "int8": replace(cfg, kv_cache_dtype="int8")}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    params = init_model(cfg, generator=gen, device=None)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), generator=gen,
+                           device=dev)
+    out, fns, states, lasts = {"cache_bytes": {}, "fill_s": {}, "launches": {}}, {}, {}, {}
+    for key, c in cfgs.items():
+        fns[key] = make_serve_fns(c, SERVE_BATCH, PROMPT_LEN + NEW_TOKENS)
+        st = fns[key]["init_state"]()
+        out["cache_bytes"][key] = sum(t.numel() * t.element_size() for t in st.values())
+        flash_attention.launches = 0
+        t = time.perf_counter()
+        lasts[key], states[key] = prefill(params, c, tokens, st)
+        torch.cuda.synchronize()
+        out["fill_s"][key] = time.perf_counter() - t
+        out["launches"][key] = flash_attention.launches
+        check(flash_attention.launches == cfg.num_layers,
+              f"int8 lane, {key}: the fill launched flash_attention "
+              f"{flash_attention.launches} times, want {cfg.num_layers}")
+    out["cache_bytes_ratio"] = out["cache_bytes"]["int8"] / out["cache_bytes"]["bfloat16"]
+    # the first layer's keys and values come from the same input on both
+    # paths: every dequantized value within INT8_STEP_BOUND steps of the
+    # bfloat16 cache's. Later layers' inputs differ (the int8 fill attends
+    # over the quantized cache): their relative L2 from the bfloat16 cache
+    # is reported
+    s8, s16 = states["int8"], states["bfloat16"]
+    worst, rel = 0.0, {}
+    for name in ("k", "v"):
+        deq = [dequantize_kv(s8[f"b0_{name}"][g, :, :PROMPT_LEN],
+                             s8[f"b0_{name}s"][g, :, :PROMPT_LEN]) for g in range(cfg.num_groups)]
+        ref = [s16[f"b0_{name}"][g, :, :PROMPT_LEN] for g in range(cfg.num_groups)]
+        err = (deq[0].float() - ref[0].float()).abs() / s8[f"b0_{name}s"][0, :, :PROMPT_LEN].float()
+        worst = max(worst, float(err.max()))
+        check(bool(torch.isfinite(err).all()), "int8 lane: a zero scale in the filled cache")
+        rel[name] = [_rel_l2(a, b) for a, b in zip(deq, ref)]
+    out["first_layer_max_err_in_steps"] = worst
+    out["cache_rel_l2_by_layer"] = rel
+    check(worst <= INT8_STEP_BOUND, f"int8 lane: a dequantized value of the first layer is "
+          f"{worst:.3f} steps from the bfloat16 cache's, beyond {INT8_STEP_BOUND}")
+    out["fill_last_logits_int8_vs_bf16"] = _logit_agreement(lasts["int8"], lasts["bfloat16"])
+    cfg32 = replace(cfgs["int8"], param_dtype="float32", compute_dtype="float32")
+    out["state_fill_oracle"] = fill_oracle(params, float32_view(params), cfgs["int8"], cfg32,
+                                           tokens[:, :ORACLE_LEN], dev)
+    tok = lasts["bfloat16"][:, -1].argmax(-1, keepdim=True)
+    err2 = ref2 = 0.0
+    same = 0
+    ms = {"bfloat16": 0.0, "int8": 0.0}
+    for i in range(NEW_TOKENS):
+        step = {}
+        for key in ("bfloat16", "int8"):
+            t = time.perf_counter()
+            step[key], states[key] = fns[key]["decode"](params, states[key], tok,
+                                                         PROMPT_LEN + i)
+            torch.cuda.synchronize()
+            ms[key] += (time.perf_counter() - t) * 1e3 / NEW_TOKENS
+        a, b = step["int8"][:, -1].float(), step["bfloat16"][:, -1].float()
+        err2 += float(((a - b) ** 2).sum())
+        ref2 += float((b ** 2).sum())
+        same += int((a.argmax(-1) == b.argmax(-1)).sum())
+        check(bool(torch.isfinite(a).all()), "int8 lane: decode logits not finite")
+        tok = b.argmax(-1, keepdim=True)
+    out["decode_rel_l2_int8_vs_bf16"] = (err2 / ref2) ** 0.5
+    out["decode_top1_agree"] = same / (SERVE_BATCH * NEW_TOKENS)
+    out["decode_ms_per_step"] = ms
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    check(out["decode_rel_l2_int8_vs_bf16"] <= INT8_LOGIT_TOL,
+          f"int8 lane: decode logits {out['decode_rel_l2_int8_vs_bf16']:.4g} from the "
+          f"bfloat16 cache's (relative L2), beyond {INT8_LOGIT_TOL}")
+    del params, states, lasts, fns
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4607,50 +4839,43 @@ def train_grads(name: str, dev, capture: dict) -> dict:
             "remat_vs_none": remat}
 
 
-def resume_check(dev) -> dict:
+def resume_check() -> dict:
     """(d): Qwen3-1.7B at full width and GRAD_LAYERS layers, RESUME_STEPS
     steps uninterrupted against RESUME_AT steps with a CheckpointManager
     checkpoint, then resumed from it to RESUME_STEPS: the same losses bit
-    for bit. The checkpoint's bytes, and the seconds of a restore onto the
-    card and of a synchronous save of the restored tree, in a temporary
+    for bit. The checkpoint's bytes, the seconds of each run: the
+    interrupted one (RESUME_AT steps and the checkpoint written) and the
+    resumed one (the restore and the remaining steps), in a temporary
     directory removed afterwards."""
-    import shutil
     import tempfile
     from dataclasses import replace
 
     import torch
 
-    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import make_train_fns
     from repro_torch.launch.trainer import train
 
     cfg = replace(get_config("qwen3-1.7b"), num_layers=GRAD_LAYERS)
     kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_LEN, remat="full", seed=54)
+    seconds = {}
+    t = time.perf_counter()
     full = train(cfg, steps=RESUME_STEPS, **kw)
+    seconds["uninterrupted_s"] = time.perf_counter() - t
     with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
         train(cfg, steps=RESUME_AT, ckpt_dir=d, ckpt_every=RESUME_AT, **kw)
+        seconds["interrupted_s"] = time.perf_counter() - t
+        t = time.perf_counter()
         resumed = train(cfg, steps=RESUME_STEPS, ckpt_dir=d, ckpt_every=10 ** 9, **kw)
+        seconds["resumed_s"] = time.perf_counter() - t
         check(resumed.resumed_from == RESUME_AT and resumed.losses == full.losses[RESUME_AT:],
               f"resume: losses {resumed.losses} (from {resumed.resumed_from}) against "
               f"{full.losses[RESUME_AT:]}")
         step_dir = Path(d) / f"step_{RESUME_AT:08d}"
         nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
-        fns = make_train_fns(cfg)
-        t = time.perf_counter()
-        tree, _ = load_checkpoint(d, RESUME_AT, {"params": fns["param_shapes"],
-                                                 "opt": fns["opt_shapes"]}, device=dev)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t
-        shutil.rmtree(step_dir)
-        t = time.perf_counter()
-        save_checkpoint(d, RESUME_AT, tree)
-        save_s = time.perf_counter() - t
-        del tree
     torch.cuda.empty_cache()
     return {"layers": GRAD_LAYERS, "losses": full.losses, "resumed_losses": resumed.losses,
-            "bit_equal": True, "checkpoint_bytes": nbytes, "restore_s": restore_s,
-            "save_s": save_s}
+            "bit_equal": True, "checkpoint_bytes": nbytes, **seconds}
 
 
 def time_flash_bwd(capture: dict) -> dict:
@@ -4752,7 +4977,7 @@ def training(dev) -> dict:
         out["grads"][name] = train_grads(name, dev, capture)
         seconds[f"grads_{name}"] = time.perf_counter() - t
     t = time.perf_counter()
-    out["resume"] = resume_check(dev)
+    out["resume"] = resume_check()
     seconds["resume"] = time.perf_counter() - t
     t = time.perf_counter()
     out["flash_attention_bwd"] = time_flash_bwd(capture)
@@ -4894,7 +5119,7 @@ def main() -> int:
         log("   " + json.dumps(served[name]))
 
     t = time.perf_counter()
-    fa = time_flash(model_capture)
+    fa = time_flash(model_capture["flash_attention"])
     wk = time_wkv6(model_capture)
     del model_capture
     log(f"== 9 model kernels timed on the first layer's serving inputs in "
@@ -5000,9 +5225,10 @@ def main() -> int:
 
     t = time.perf_counter()
     more = more_archs(dev)
-    log(f"== 15 the MoE, MLA and dense archs served on the card ({card}), "
-        f"{SERVE_BATCH} requests of {PROMPT_LEN} + {NEW_TOKENS} tokens, in "
-        f"{time.perf_counter() - t:.2f} s")
+    log(f"== 15 the MoE, MLA, dense, encoder-decoder and VLM archs and the int8 KV "
+        f"cache served on the card ({card}), {SERVE_BATCH} requests of {PROMPT_LEN} "
+        f"+ {NEW_TOKENS} tokens (Whisper-small: 1,500 frames, {PROMPT_LENS['whisper-small']}"
+        f" + {NEW_TOKENS}), in {time.perf_counter() - t:.2f} s")
     log(f"   (d) CPU lane == CUDA lane at full width, {LANE_LAYERS} layers, float32, "
         f"within {LANE_TOL}, MoE routing equal: " + json.dumps(more["lanes"]))
     for name, row in more["served"].items():
@@ -5012,10 +5238,17 @@ def main() -> int:
             f"{row['prefill_device_busy_share']:.3f} / decode "
             f"{row['decode_device_busy_share']:.3f}, peak memory "
             f"{row['peak_memory_bytes']} bytes, flash_attention launches "
-            f"{row['launches']['flash_attention']}")
+            f"{row['launches']['flash_attention']} in the prefill, "
+            f"{row['decode_flash_attention_launches_per_step']:g} a decode step")
         log("   " + json.dumps(row))
     for name, row in more["flash_attention"].items():
         log(f"   flash_attention at {name}'s shape: " + json.dumps(row))
+    i8 = more["int8"]
+    log(f"   (e) int8 KV cache, Qwen3-1.7B: {i8['cache_bytes']['int8']} bytes against "
+        f"{i8['cache_bytes']['bfloat16']} in bfloat16, decode "
+        f"{i8['decode_ms_per_step']['int8']:.3f} against "
+        f"{i8['decode_ms_per_step']['bfloat16']:.3f} ms a step, logits "
+        f"{i8['decode_rel_l2_int8_vs_bf16']:.4g} from the bfloat16 cache's: " + json.dumps(i8))
     log("   seconds " + json.dumps(more["seconds"]))
     log(f"== all phases in {time.perf_counter() - t_script:.1f} s")
 
@@ -5097,6 +5330,10 @@ def main() -> int:
         **{k: fa[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "launches_phase15": {n: r["launches"]["flash_attention"]
                              for n, r in more["served"].items()},
+        "launches_phase15_decode_step": {
+            n: r["decode_flash_attention_launches_per_step"]
+            for n, r in more["served"].items() if r["decode_flash_attention_launches_per_step"]},
+        "launches_phase15_int8": more["int8"]["launches"]["int8"],
         "phase15": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms", "max_abs_err")}
                     for n, r in more["flash_attention"].items()},

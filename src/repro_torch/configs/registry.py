@@ -2,10 +2,11 @@
 
 Each ported architecture is one module here holding ``CONFIG`` with the
 published dimensions: the dense-GQA Qwen3-1.7B, ChatGLM3-6B and Qwen2-72B,
-the MLA MiniCPM3-4B, the MoE DeepSeekMoE-16B and Granite-MoE-1B and the
-attention-free RWKV6-3B. The other three (Jamba's Mamba blocks, Whisper's
-encoder, InternVL2's vision frontend) come with a later slice of the port,
-and ``get_config`` raises ``NotImplementedError`` for them. ``long_500k``
+the MLA MiniCPM3-4B, the MoE DeepSeekMoE-16B and Granite-MoE-1B, the
+attention-free RWKV6-3B, the encoder-decoder Whisper-small and the VLM
+InternVL2-1B (their frontends stubs, as in the JAX package). Jamba's Mamba
+blocks come with a later slice of the port, and ``get_config`` raises
+``NotImplementedError`` for it. ``long_500k``
 needs a sub-quadratic token mixer and is a skip for pure full-attention
 archs.
 """
@@ -34,6 +35,8 @@ PORTED_ARCHS = (
     "qwen2-72b",
     "deepseek-moe-16b",
     "granite-moe-1b-a400m",
+    "internvl2-1b",
+    "whisper-small",
     "rwkv6-3b",
 )
 
@@ -59,8 +62,8 @@ def get_config(name: str):
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     if name not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"{name} is not ported yet: Mamba blocks, the encoder and "
-            "frontends come with a later slice of the port; ported so far: "
+            f"{name} is not ported yet: Mamba blocks come with a later "
+            "slice of the port; ported so far: "
             f"{PORTED_ARCHS}"
         )
     mod = importlib.import_module(

@@ -173,27 +173,51 @@ def _group_stack(trees: list):
     return np.stack([pool_bits(t) for t in trees])
 
 
+_LAYER_PARTS = ("ln1", "mix", "ln2", "ffn", "lnx", "xattn")
+
+
+def _layers_from_groups(groups: dict, n_groups: int, group_size: int) -> list:
+    """Group ``g``'s block ``i`` as layer ``g * group_size + i``: its
+    ``b{i}_{part}`` entries, sliced at ``g``, as the layer's ``part``."""
+    return [{part: _group_slice(groups[f"b{i}_{part}"], g)
+             for part in _LAYER_PARTS if f"b{i}_{part}" in groups}
+            for g in range(n_groups) for i in range(group_size)]
+
+
+def _groups_from_layers(layers: list, n_groups: int, group_size: int) -> dict:
+    """The inverse of :func:`_layers_from_groups`."""
+    groups = {}
+    for i in range(group_size):
+        for part in layers[i]:
+            groups[f"b{i}_{part}"] = _group_stack(
+                [layers[g * group_size + i][part] for g in range(n_groups)])
+    return groups
+
+
 def model_params_from_jax(tree: dict, cfg) -> dict:
     """The port's parameters (CPU tensors) from the JAX package's
     ``init_model`` pytree given as numpy arrays. Group ``g``'s block ``i``
     becomes layer ``g * len(block_pattern) + i``: its ``b{i}_ln1``,
-    ``b{i}_mix``, ``b{i}_ln2`` and ``b{i}_ffn`` entries, sliced at ``g``,
-    become the layer's ``ln1``, ``mix``, ``ln2`` and ``ffn``."""
-    groups = tree["groups"]
-    layers = []
-    for g in range(cfg.num_groups):
-        for i in range(cfg.group_size):
-            layers.append({
-                part: _group_slice(groups[f"b{i}_{part}"], g)
-                for part in ("ln1", "mix", "ln2", "ffn") if f"b{i}_{part}" in groups
-            })
+    ``b{i}_mix``, ``b{i}_ln2``, ``b{i}_ffn`` and, for an encoder arch's
+    cross-attention, ``b{i}_lnx`` and ``b{i}_xattn`` entries, sliced at
+    ``g``, become the layer's ``ln1``, ``mix``, ``ln2``, ``ffn``, ``lnx``
+    and ``xattn``. The ``encoder`` subtree (its ``groups`` stacked over
+    ``encoder_layers``, one block each) becomes ``{"layers", "final_norm",
+    "pos_embed"}`` the same way."""
     params = {
         "embed": _model_tensor(tree["embed"]),
         "final_norm": {k: _model_tensor(v) for k, v in tree["final_norm"].items()},
-        "layers": layers,
+        "layers": _layers_from_groups(tree["groups"], cfg.num_groups, cfg.group_size),
     }
     if "lm_head" in tree:
         params["lm_head"] = _model_tensor(tree["lm_head"])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": _layers_from_groups(enc["groups"], cfg.encoder_layers, 1),
+            "final_norm": {k: _model_tensor(v) for k, v in enc["final_norm"].items()},
+            "pos_embed": _model_tensor(enc["pos_embed"]),
+        }
     return params
 
 
@@ -201,19 +225,20 @@ def params_from_model(params: dict, cfg) -> dict:
     """The inverse of :func:`model_params_from_jax`: the JAX pytree layout
     as numpy arrays (layers stacked per group again; bfloat16 as ``uint16``
     bits)."""
-    G, n = cfg.num_groups, cfg.group_size
-    groups = {}
-    for i in range(n):
-        for part in params["layers"][i]:
-            groups[f"b{i}_{part}"] = _group_stack(
-                [params["layers"][g * n + i][part] for g in range(G)])
     tree = {
         "embed": pool_bits(params["embed"]),
         "final_norm": {k: pool_bits(v) for k, v in params["final_norm"].items()},
-        "groups": groups,
+        "groups": _groups_from_layers(params["layers"], cfg.num_groups, cfg.group_size),
     }
     if "lm_head" in params:
         tree["lm_head"] = pool_bits(params["lm_head"])
+    if "encoder" in params:
+        enc = params["encoder"]
+        tree["encoder"] = {
+            "groups": _groups_from_layers(enc["layers"], cfg.encoder_layers, 1),
+            "final_norm": {k: pool_bits(v) for k, v in enc["final_norm"].items()},
+            "pos_embed": pool_bits(enc["pos_embed"]),
+        }
     return tree
 
 

@@ -21,15 +21,20 @@ def make_serve_fns(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """``{"prefill", "decode", "init_state"}`` for ``batch`` sequences of
     up to ``max_len`` tokens on ``device`` (``None`` means the card).
 
-    * ``prefill(params, tokens)`` -- the full-sequence forward (the
-      flash-attention / WKV6 kernels on the card), last position's logits
-      (B, 1, V);
+    * ``prefill(params, tokens, extra_embeds=None, frames=None)`` -- the
+      full-sequence forward (the flash-attention / WKV6 kernels on the
+      card), last position's logits (B, 1, V); a VLM's patch embeddings
+      go in ``extra_embeds``, an encoder arch's frame embeddings in
+      ``frames``;
     * ``decode(params, state, token, cur_len)`` -- one decode step,
       ``(logits (B, 1, V), state)``, the state updated in place;
-    * ``init_state()`` -- a zeroed decode state on the device.
+    * ``init_state()`` -- a zeroed decode state on the device, with room
+      for ``cfg.frontend_len`` encoder positions of cross keys and values
+      for an encoder arch (the JAX function's ``enc_len``).
     """
     check_supported(cfg)
     dev = resolve_device(device)
+    enc_len = cfg.frontend_len if cfg.has_encoder else 0
 
     def prefill_fn(params, tokens, extra_embeds=None, frames=None):
         with torch.inference_mode():
@@ -41,6 +46,6 @@ def make_serve_fns(cfg: ModelConfig, batch: int, max_len: int, device=None):
         return decode_step(params, cfg, state, token, cur_len)
 
     def init_state():
-        return init_decode_state(cfg, batch, max_len, device=dev)
+        return init_decode_state(cfg, batch, max_len, enc_len, device=dev)
 
     return {"prefill": prefill_fn, "decode": decode_fn, "init_state": init_state}

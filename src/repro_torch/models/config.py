@@ -1,6 +1,6 @@
 """Model configuration covering every architecture family in the pool
-(a copy of :mod:`repro.models.config`; the port runs the ``attn`` (GQA or
-MLA, with an MLP or MoE) and ``rwkv`` blocks so far)."""
+(a copy of :mod:`repro.models.config`; the port runs every block but
+``mamba`` so far)."""
 
 from __future__ import annotations
 

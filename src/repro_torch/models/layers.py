@@ -7,9 +7,12 @@ explicit state. GQA attention and the RWKV6 recurrence go through
 :mod:`repro_torch.kernels.ops`, which launches the Hopper kernels on a CUDA
 tensor and their plain versions on a CPU tensor. MLA attends over its
 compressed cache in plain float32 and the MoE experts are batched matrix
-products: the JAX package calls no Pallas kernel for either.
+products: the JAX package calls no Pallas kernel for either. GQA decode
+keeps its cache in the compute dtype or, with ``kv_cache_dtype ==
+"int8"``, as int8 values with a bfloat16 scale a (position, KV head)
+(:func:`quantize_kv`).
 
-Not ported yet (later slices): Mamba and the int8 KV cache.
+Not ported yet (a later slice): Mamba.
 """
 
 from __future__ import annotations
@@ -153,26 +156,93 @@ def attn_apply(p, x, cfg: ModelConfig, rope, causal: bool = True):
     return out, (k, v)
 
 
-def attn_decode(p, x, cfg: ModelConfig, cache_k, cache_v, cur_len: int, rope):
+def attn_apply_int8(p, x, cfg: ModelConfig, rope):
+    """Causal full-sequence attention that reads its keys and values as an
+    int8 cache holds them: each (position, KV head) quantized by
+    :func:`quantize_kv` and dequantized (:func:`dequantize_kv`), as S
+    decode steps over an int8 cache read them. Returns (out, (k values, k
+    scales, v values, v scales)) for the cache."""
+    q, k, v = attn_project_qkv(p, x, cfg, rope)
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    o = ops.attention(q, dequantize_kv(kq, ks).to(q.dtype), dequantize_kv(vq, vs).to(q.dtype),
+                      causal=True)
+    out = o.reshape(o.shape[0], o.shape[1], -1) @ p["w_o"]
+    return out, (kq, ks, vq, vs)
+
+
+def quantize_kv(x, dim: int = -1):
+    """Symmetric int8 quantization along ``dim`` (per token and KV head):
+    (int8 values, bfloat16 scales), step for step as the JAX
+    ``quantize_kv``: the absolute maximum in float32, ``scale = max(amax,
+    1e-6) / 127`` in float32, ``clip(rint(x / scale), -127, 127)`` (a
+    division, not a product with the reciprocal; ``torch.round`` rounds
+    half to even as ``jnp.rint`` does), the scale stored in bfloat16."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=dim, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale):
+    """An int8 cache's values in bfloat16: ``q.bf16 * scale.bf16``, the
+    product rounded to bfloat16 (the JAX ``attn_decode``'s)."""
+    return q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+
+
+def attn_decode(p, x, cfg: ModelConfig, cache_k, cache_v, cur_len: int, rope,
+                k_scale=None, v_scale=None):
     """One-token decode against a KV cache, which is updated in place.
 
     x (B, 1, D); cache_k / cache_v (B, S_max, KVH, hd); ``cur_len`` tokens
     are already in the cache. The new K/V row is written at ``cur_len``:
     the JAX package rebuilds the whole cache with an iota mask instead
     (``_masked_insert``, for its sharded cache), with the same result.
-    ``rope``: the :func:`rope_tables` of position ``cur_len``. Returns the
-    block's output (B, 1, D).
+    ``rope``: the :func:`rope_tables` of position ``cur_len``. With
+    ``cfg.kv_cache_dtype == "int8"`` the caches hold int8 values and
+    ``k_scale`` / ``v_scale`` (B, S_max, KVH, 1) their bfloat16 scales: the
+    new row is quantized (:func:`quantize_kv`) and the first ``cur_len +
+    1`` positions dequantized in bfloat16 (:func:`dequantize_kv`) before
+    the float32 attention, as the JAX function's single-device branch
+    writes it. Returns the block's output (B, 1, D).
     """
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"{cfg.kv_cache_dtype} KV cache comes with a later slice of the port"
-        )
     B = x.shape[0]
     q, k, v = attn_project_qkv(p, x, cfg, rope)
-    cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)
-    o = ops.decode_attention(q, cache_k, cache_v, cur_len + 1)
+    n = cur_len + 1
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = quantize_kv(k[:, 0])
+        vq, vs = quantize_kv(v[:, 0])
+        cache_k[:, cur_len], k_scale[:, cur_len] = kq, ks
+        cache_v[:, cur_len], v_scale[:, cur_len] = vq, vs
+        keys = dequantize_kv(cache_k[:, :n], k_scale[:, :n])
+        values = dequantize_kv(cache_v[:, :n], v_scale[:, :n])
+    else:
+        cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)
+        keys, values = cache_k, cache_v
+    o = ops.decode_attention(q, keys, values, n)
     return o.reshape(B, 1, -1) @ p["w_o"]
+
+
+def cross_attn_apply(p, x, cross_k, cross_v, cfg: ModelConfig):
+    """Cross-attention of x (B, S, D) over an encoder's keys and values
+    (B, T, KVH, hd), as the JAX ``_block_train`` and ``decode_step`` write
+    it: ``w_q`` and ``w_o`` only (no bias, no qk-norm, no RoPE), every key
+    visible (``ops.attention(..., causal=False)``: the flash-attention
+    kernel on the card, also for S == 1 in decode). Returns (B, S, D)."""
+    B, S, _ = x.shape
+    q = (x @ p["w_q"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    o = ops.attention(q, cross_k, cross_v, causal=False)
+    return o.reshape(B, S, -1) @ p["w_o"]
+
+
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """The keys and values (B, T, KVH, hd) that cross-attention reads from
+    the encoder's output (the JAX ``_cross_kv``: ``w_k`` and ``w_v`` only)."""
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
+    return (enc_out @ p["w_k"]).reshape(shape), (enc_out @ p["w_v"]).reshape(shape)
 
 
 # ----------------------------------------------------------------------- MLP

@@ -1,7 +1,11 @@
 """Model assembly: embedding -> blocks -> head (counterpart of
 :mod:`repro.models.transformer`), for the ``attn`` blocks (GQA or MLA
 attention, then an MLP or, on the layers ``moe_every`` / ``moe_offset``
-pick, an MoE) and the ``rwkv`` blocks (time mix + channel mix).
+pick, an MoE) and the ``rwkv`` blocks (time mix + channel mix), with an
+encoder and cross-attention for an encoder-decoder arch (Whisper: frames
+in, ``frames``) and a prefix of patch embeddings for a VLM (InternVL2:
+``extra_embeds``); the frontends that would make those embeddings are
+stubs, as in the JAX package.
 
 The JAX package stacks each block group's parameters on a leading ``G``
 axis and iterates with ``jax.lax.scan``; the port keeps one parameter dict
@@ -19,8 +23,16 @@ updated in place.
   rest in the backward (``torch.utils.checkpoint``, non-reentrant);
   ``dots`` keeps the matrix products' outputs as well (a selective
   checkpoint saving ``aten.mm``, ``aten.bmm`` and ``aten.addmm``).
+* :func:`encode` -- the encoder over frame embeddings (B, T, D): a learned
+  ``pos_embed`` added, non-causal self-attention layers at RoPE positions
+  (the JAX config's noted deviation from Whisper, kept), the final norm.
+  Its output feeds each decoder layer's cross-attention
+  (:func:`cross_state` writes those keys and values into a decode state).
 * :func:`decode_step` -- one token against the decode state made by
-  :func:`init_decode_state`.
+  :func:`init_decode_state` (with ``kv_cache_dtype == "int8"`` the GQA
+  caches hold int8 values and bfloat16 scales ``b{i}_ks`` / ``b{i}_vs``;
+  an encoder arch's ``b{i}_xk`` / ``b{i}_xv`` hold the cross keys and
+  values).
 * :func:`prefill` -- fills the decode state from a prompt by one
   ``forward`` that writes each block's keys and values (MLA: the
   compressed ``c_kv`` and ``k_rope``), last mix inputs and final WKV
@@ -32,7 +44,17 @@ updated in place.
   group of their own (``moe_apply(per_position=True)``): for an MoE arch
   the fill's last logits are the decode loop's, not ``forward``'s (whose
   capacity spans all B * S tokens, as the JAX ``forward``'s and the serve
-  fns' ``prefill`` do).
+  fns' ``prefill`` do). Likewise the fill's attention reads an int8
+  cache's keys and values quantized and dequantized, as decode steps do,
+  so its last logits are the decode loop's. Two more choices, where the
+  JAX ``prefill`` leaves its caches short of what ``forward`` computed
+  (``ROADMAP.md`` Queue 3): given ``frames``, the fill writes the cross
+  state from the encoder (the JAX ``prefill`` keeps the caller's, zeros
+  from ``init_decode_state``); given ``extra_embeds``, it writes all P + S
+  positions, the P prefix embeddings first, so decoding goes on at
+  ``cur_len = P + S`` and the fill's last logits are ``forward``'s (the
+  JAX ``prefill`` steps over the S tokens alone, at positions 0 .. S-1;
+  :func:`prefill_stepwise` keeps that).
 * :func:`active_param_count`, :func:`model_flops` and
   :func:`active_param_count_shapes` -- the roofline's parameter and FLOP
   counts, routed experts counted ``top_k / n_experts``.
@@ -40,9 +62,7 @@ updated in place.
 :func:`decode_step`, :func:`prefill` and the serve fns run under
 ``torch.inference_mode``.
 
-Not ported yet (later slices): Mamba, the encoder and cross-attention,
-the frontends (VLM ``extra_embeds``, audio frames) and the int8 KV cache;
-each raises ``NotImplementedError``.
+Not ported yet (a later slice): Mamba; it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,20 +83,11 @@ from repro_torch.models.config import ModelConfig
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
-    missing = []
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    Mamba blocks."""
     if any(kind not in ("attn", "rwkv") for kind in cfg.block_pattern):
-        missing.append("Mamba blocks")
-    if cfg.has_encoder:
-        missing.append("the encoder and cross-attention")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.kv_cache_dtype != "bfloat16":
-        missing.append(f"the {cfg.kv_cache_dtype} KV cache")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} come with a later slice of the port"
-        )
+            f"{cfg.name}: Mamba blocks come with a later slice of the port")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -126,23 +137,43 @@ def param_shapes(cfg: ModelConfig):
     return _init(cfg, torch.Generator(), torch.device("meta"))
 
 
+def _layer_init(cfg: ModelConfig, generator, dev, kind: str, pos: int, cross: bool):
+    """One layer's parameters: ``ln1``, ``mix``, ``ln2``, ``ffn`` (not for
+    RWKV) and, for a decoder ``attn`` layer of an encoder arch, the
+    cross-attention's ``lnx`` and ``xattn`` (the JAX ``b{i}_lnx`` /
+    ``b{i}_xattn``)."""
+    lp = {"ln1": L.norm_init(cfg, cfg.d_model, dev),
+          "ln2": L.norm_init(cfg, cfg.d_model, dev),
+          "mix": _mixer_init(cfg, generator, dev, kind)}
+    if kind == "attn":
+        lp["ffn"] = _ffn_init(cfg, generator, dev, pos)
+        if cross:
+            lp["lnx"] = L.norm_init(cfg, cfg.d_model, dev)
+            lp["xattn"] = L.attn_init(cfg, generator, dev)
+    return lp
+
+
 def _init(cfg: ModelConfig, generator, dev):
     dt = L.param_dtype(cfg)
     params = {
         "embed": L.dense_init((cfg.vocab_size, cfg.d_model), dt, 1, generator, dev),
         "final_norm": L.norm_init(cfg, cfg.d_model, dev),
-        "layers": [],
+        "layers": [_layer_init(cfg, generator, dev, kind, layer % cfg.group_size,
+                               cfg.has_encoder)
+                   for layer, kind in enumerate(layer_kinds(cfg))],
     }
-    for layer, kind in enumerate(layer_kinds(cfg)):
-        lp = {"ln1": L.norm_init(cfg, cfg.d_model, dev),
-              "ln2": L.norm_init(cfg, cfg.d_model, dev),
-              "mix": _mixer_init(cfg, generator, dev, kind)}
-        if kind == "attn":
-            lp["ffn"] = _ffn_init(cfg, generator, dev, layer % cfg.group_size)
-        params["layers"].append(lp)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init((cfg.d_model, cfg.vocab_size), dt, 0,
                                          generator, dev)
+    if cfg.has_encoder:
+        # the JAX package's encoder: one "attn" block a layer, with an MLP
+        params["encoder"] = {
+            "layers": [_layer_init(cfg, generator, dev, "attn", 0, False)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": L.norm_init(cfg, cfg.d_model, dev),
+            "pos_embed": L.dense_init((max(cfg.frontend_len, 8), cfg.d_model), dt, 1,
+                                      generator, dev),
+        }
     return params
 
 
@@ -184,9 +215,14 @@ def active_param_count_shapes(cfg: ModelConfig) -> int:
 
 
 # ------------------------------------------------------------------ forward
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed(params, cfg: ModelConfig, tokens, extra_embeds=None):
+    """The tokens' embeddings times sqrt(D), after ``extra_embeds`` (B, P,
+    D), which are prepended unscaled."""
     x = params["embed"][tokens].to(L.compute_dtype(cfg))
-    return x * math.sqrt(cfg.d_model)
+    x = x * math.sqrt(cfg.d_model)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -212,17 +248,72 @@ def _save_dots(ctx, op, *args, **kwargs):
 def forward(params, cfg: ModelConfig, tokens, extra_embeds=None, frames=None,
             remat: str = "none"):
     """Full-sequence forward over ``tokens`` (B, S). Returns (logits
-    (B, S, V), aux loss); the aux loss is 0 without MoE. ``remat``
-    checkpoints each layer group for training (see the module's
+    (B, S, V), aux loss); the aux loss is 0 without MoE.
+
+    ``extra_embeds`` -- VLM patch embeddings (B, P, D) prepended to the
+    sequence; their positions' logits are dropped. ``frames`` -- the
+    encoder's frame embeddings (B, T, D), required by an encoder arch.
+    ``remat`` checkpoints each layer group for training (see the module's
     docstring)."""
     check_supported(cfg)
-    if extra_embeds is not None or frames is not None:
-        raise NotImplementedError(
-            "VLM extra_embeds and audio frames come with a later slice of the port"
-        )
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {remat!r}")
-    return _forward(params, cfg, tokens, remat=remat)
+    logits, aux = _forward(params, cfg, tokens, remat=remat, extra_embeds=extra_embeds,
+                           frames=frames)
+    if extra_embeds is not None:
+        logits = logits[:, extra_embeds.shape[1]:]
+    return logits, aux
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """The encoder over ``frames`` (B, T, D), T at most ``max(frontend_len,
+    8)``: ``pos_embed[:T]`` added, then each layer's non-causal
+    self-attention at RoPE positions 0 .. T-1 (through ``ops.attention``,
+    the flash-attention kernel on the card) and MLP, then the final norm
+    (the JAX ``encode``)."""
+    check_supported(cfg)
+    enc = params["encoder"]
+    B, T, _ = frames.shape
+    x = frames.to(L.compute_dtype(cfg))
+    x = x + enc["pos_embed"][None, :T].to(x.dtype)
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    rope = L.rope_tables(positions, cfg)
+    for lp in enc["layers"]:
+        a, _ = L.attn_apply(lp["mix"], L.norm_apply(lp["ln1"], x, cfg), cfg, rope,
+                            causal=False)
+        x = x + a
+        x = x + L.mlp_apply(lp["ffn"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+    return L.norm_apply(enc["final_norm"], x, cfg)
+
+
+def _cross_kv(params, cfg: ModelConfig, enc_out):
+    """Each layer group's cross-attention keys and values from the
+    encoder's output: a list of G pairs (B, T, KVH, hd). As in the JAX
+    ``_cross_kv``, a group's pair comes from its block 0's ``xattn`` and
+    serves every ``attn`` block of the group."""
+    n = cfg.group_size
+    return [L.cross_kv(params["layers"][g * n]["xattn"], enc_out, cfg)
+            for g in range(cfg.num_groups)]
+
+
+def _write_cross(state, cfg: ModelConfig, cross) -> None:
+    for g, (ck, cv) in enumerate(cross):
+        for i, kind in enumerate(cfg.block_pattern):
+            if kind == "attn":
+                state[f"b{i}_xk"][g] = ck
+                state[f"b{i}_xv"][g] = cv
+
+
+def cross_state(params, cfg: ModelConfig, state, frames):
+    """Write into ``state`` (from :func:`init_decode_state` with ``enc_len =
+    T``) the cross-attention keys and values of ``frames`` (B, T, D): the
+    JAX ``_cross_kv(encode(frames))`` in the ``b{i}_xk`` / ``b{i}_xv``
+    layout. The JAX package never fills them (its ``init_decode_state``
+    zeroes them and its ``prefill`` keeps them); :func:`prefill` and
+    :func:`prefill_stepwise` call this. Returns ``state``."""
+    with torch.inference_mode():
+        _write_cross(state, cfg, _cross_kv(params, cfg, encode(params, cfg, frames)))
+    return state
 
 
 def _ffn(lp, h, cfg: ModelConfig, i: int, per_position: bool = False):
@@ -232,10 +323,11 @@ def _ffn(lp, h, cfg: ModelConfig, i: int, per_position: bool = False):
     return L.mlp_apply(lp["ffn"], h, cfg), None
 
 
-def _block(x, kind, lp, cfg: ModelConfig, rope, state=None, g=0, i=0):
+def _block(x, kind, lp, cfg: ModelConfig, rope, state=None, g=0, i=0, cross=None):
     """One block over x (B, S, D): (x, aux loss or None); with ``state``,
     writes what the decode steps would leave there (see :func:`_forward`)
-    and routes an MoE FFN position by position, as they do."""
+    and routes an MoE FFN position by position, as they do. ``cross``:
+    the group's cross-attention keys and values, for an encoder arch."""
     h = L.norm_apply(lp["ln1"], x, cfg)
     if kind == "attn":
         S = x.shape[1]
@@ -244,12 +336,19 @@ def _block(x, kind, lp, cfg: ModelConfig, rope, state=None, g=0, i=0):
             if state is not None:
                 state[f"b{i}_ckv"][g, :, :S] = ckv
                 state[f"b{i}_krope"][g, :, :S] = krope
+        elif state is not None and cfg.kv_cache_dtype == "int8":
+            a, cache = L.attn_apply_int8(lp["mix"], h, cfg, rope)
+            for name, t in zip(("k", "ks", "v", "vs"), cache):
+                state[f"b{i}_{name}"][g, :, :S] = t
         else:
             a, (k, v) = L.attn_apply(lp["mix"], h, cfg, rope)
             if state is not None:
                 state[f"b{i}_k"][g, :, :S] = k
                 state[f"b{i}_v"][g, :, :S] = v
         x = x + a
+        if cross is not None:
+            x = x + L.cross_attn_apply(lp["xattn"], L.norm_apply(lp["lnx"], x, cfg),
+                                       *cross, cfg)
         f, aux = _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg, i,
                       per_position=state is not None)
         return x + f, aux
@@ -263,27 +362,39 @@ def _block(x, kind, lp, cfg: ModelConfig, rope, state=None, g=0, i=0):
     return x + c, None
 
 
-def _group(x, layers, cfg: ModelConfig, rope, state=None, g=0):
+def _group(x, layers, cfg: ModelConfig, rope, state=None, g=0, cross=None):
     """The blocks of layer group ``g`` (``cfg.block_pattern``) over x:
     (x, the group's aux loss summed, float32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, lp) in enumerate(zip(cfg.block_pattern, layers)):
-        x, a = _block(x, kind, lp, cfg, rope, state, g, i)
+        x, a = _block(x, kind, lp, cfg, rope, state, g, i, cross)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def _forward(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
-    """The blocks over ``tokens`` (B, S); (logits (B, S, V), aux loss).
-    With ``state`` (a decode state of at least S positions), each block
-    also writes what the decode steps would leave there after the S
-    tokens: the keys and values (MLA: ``c_kv`` and ``k_rope``) at
-    positions 0 .. S-1, the time and channel mixes' last inputs and the
-    final WKV state; its MoE layers then route position by position (the
-    aux loss is then 0)."""
-    x = _embed(params, cfg, tokens)
+def _forward(params, cfg: ModelConfig, tokens, state=None, remat: str = "none",
+             extra_embeds=None, frames=None):
+    """The blocks over ``extra_embeds`` (if any, P positions) then
+    ``tokens`` (B, S); (logits (B, P + S, V), aux loss). With ``state`` (a
+    decode state of at least P + S positions), each block also writes what
+    the decode steps would leave there after the P + S positions: the keys
+    and values (MLA: ``c_kv`` and ``k_rope``; int8: quantized with their
+    scales) at positions 0 .. P+S-1, the time and channel mixes' last
+    inputs and the final WKV state, and, for an encoder arch, the cross
+    keys and values of ``frames``; its MoE layers then route position by
+    position (the aux loss is then 0), and with an int8 cache its
+    attention reads the keys and values quantized, as the decode steps
+    read their cache."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     B, S, _ = x.shape
+    cross = [None] * cfg.num_groups
+    if cfg.has_encoder:
+        if frames is None:
+            raise ValueError("enc-dec model requires frames")
+        cross = _cross_kv(params, cfg, encode(params, cfg, frames))
+        if state is not None:
+            _write_cross(state, cfg, cross)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     rope = L.rope_tables(positions, cfg)
     n = cfg.group_size
@@ -291,11 +402,12 @@ def _forward(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
     for g in range(cfg.num_groups):
         layers = params["layers"][g * n:(g + 1) * n]
         if remat == "none":
-            x, a = _group(x, layers, cfg, rope, state, g)
+            x, a = _group(x, layers, cfg, rope, state, g, cross[g])
         else:
             kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
                                                    _save_dots)} if remat == "dots" else {})
-            x, a = checkpoint(_group, x, layers, cfg, rope, use_reentrant=False, **kw)
+            x, a = checkpoint(_group, x, layers, cfg, rope, cross=cross[g],
+                              use_reentrant=False, **kw)
         aux = aux + a
     return _head(params, cfg, x), aux
 
@@ -304,42 +416,56 @@ def _forward(params, cfg: ModelConfig, tokens, state=None, remat: str = "none"):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       enc_len: int = 0, device=None):
     """Zeroed decode state in the JAX layout, stacked over groups on axis 0:
-    ``b{i}_k`` / ``b{i}_v`` (G, B, max_len, KV, hd) for GQA blocks,
-    ``b{i}_ckv`` (G, B, max_len, kv_lora_rank) and ``b{i}_krope``
-    (G, B, max_len, qk_rope_dim) for MLA blocks, ``b{i}_tm_x`` /
-    ``b{i}_cm_x`` (G, B, 1, D) and ``b{i}_wkv`` (G, B, H, hd, hd) float32
-    for RWKV blocks."""
+    ``b{i}_k`` / ``b{i}_v`` (G, B, max_len, KV, hd) for GQA blocks (int8
+    with ``kv_cache_dtype == "int8"``, beside their bfloat16 scales
+    ``b{i}_ks`` / ``b{i}_vs`` (G, B, max_len, KV, 1)), ``b{i}_ckv`` (G, B,
+    max_len, kv_lora_rank) and ``b{i}_krope`` (G, B, max_len, qk_rope_dim)
+    for MLA blocks, ``b{i}_tm_x`` / ``b{i}_cm_x`` (G, B, 1, D) and
+    ``b{i}_wkv`` (G, B, H, hd, hd) float32 for RWKV blocks; an encoder
+    arch's ``attn`` blocks also get the cross keys and values ``b{i}_xk``
+    / ``b{i}_xv`` (G, B, enc_len, KV, hd)."""
     check_supported(cfg)
-    if enc_len:
-        raise NotImplementedError("cross-attention state comes with a later slice")
     dev = resolve_device(device)
     G, dt = cfg.num_groups, L.compute_dtype(cfg)
     state = {}
+
+    def zeros(name, shape, dtype=dt):
+        state[name] = torch.zeros(shape, dtype=dtype, device=dev)
+
     for i, kind in enumerate(cfg.block_pattern):
         if kind == "attn" and cfg.attn_type == "mla":
-            state[f"b{i}_ckv"] = torch.zeros((G, batch, max_len, cfg.kv_lora_rank),
-                                             dtype=dt, device=dev)
-            state[f"b{i}_krope"] = torch.zeros((G, batch, max_len, cfg.qk_rope_dim),
-                                               dtype=dt, device=dev)
+            zeros(f"b{i}_ckv", (G, batch, max_len, cfg.kv_lora_rank))
+            zeros(f"b{i}_krope", (G, batch, max_len, cfg.qk_rope_dim))
         elif kind == "attn":
             shape = (G, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-            state[f"b{i}_k"] = torch.zeros(shape, dtype=dt, device=dev)
-            state[f"b{i}_v"] = torch.zeros(shape, dtype=dt, device=dev)
+            kv_dt = torch.int8 if cfg.kv_cache_dtype == "int8" else dt
+            zeros(f"b{i}_k", shape, kv_dt)
+            zeros(f"b{i}_v", shape, kv_dt)
+            if cfg.kv_cache_dtype == "int8":
+                zeros(f"b{i}_ks", shape[:-1] + (1,), torch.bfloat16)
+                zeros(f"b{i}_vs", shape[:-1] + (1,), torch.bfloat16)
         else:
             H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-            state[f"b{i}_tm_x"] = torch.zeros((G, batch, 1, cfg.d_model), dtype=dt, device=dev)
-            state[f"b{i}_wkv"] = torch.zeros((G, batch, H, hd, hd), dtype=torch.float32,
-                                             device=dev)
-            state[f"b{i}_cm_x"] = torch.zeros((G, batch, 1, cfg.d_model), dtype=dt, device=dev)
+            zeros(f"b{i}_tm_x", (G, batch, 1, cfg.d_model))
+            zeros(f"b{i}_wkv", (G, batch, H, hd, hd), torch.float32)
+            zeros(f"b{i}_cm_x", (G, batch, 1, cfg.d_model))
+        if kind == "attn" and cfg.has_encoder:
+            shape = (G, batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+            zeros(f"b{i}_xk", shape)
+            zeros(f"b{i}_xv", shape)
     return state
 
 
 def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
     """One decode step. ``token`` (B, 1) int; ``cur_len`` (int) tokens are
     already in the state. Updates ``state`` in place (the JAX function
-    returns a new one) and returns (logits (B, 1, V), state)."""
+    returns a new one) and returns (logits (B, 1, V), state). An encoder
+    arch's layers attend over the cross state (``b{i}_xk`` / ``b{i}_xv``,
+    all of it) after their self-attention, one query over T keys through
+    ``ops.attention``."""
     check_supported(cfg)
     cur_len = int(cur_len)
+    int8 = cfg.kv_cache_dtype == "int8"
     with torch.inference_mode():
         x = _embed(params, cfg, token)
         positions = torch.full(token.shape, cur_len, dtype=torch.int64, device=x.device)
@@ -352,8 +478,14 @@ def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
                     x = x + L.mla_decode(lp["mix"], h, cfg, state[f"b{i}_ckv"][g],
                                          state[f"b{i}_krope"][g], cur_len, rope)
                 else:
+                    scales = ((state[f"b{i}_ks"][g], state[f"b{i}_vs"][g]) if int8
+                              else (None, None))
                     x = x + L.attn_decode(lp["mix"], h, cfg, state[f"b{i}_k"][g],
-                                          state[f"b{i}_v"][g], cur_len, rope)
+                                          state[f"b{i}_v"][g], cur_len, rope, *scales)
+                if cfg.has_encoder:
+                    x = x + L.cross_attn_apply(
+                        lp["xattn"], L.norm_apply(lp["lnx"], x, cfg),
+                        state[f"b{i}_xk"][g], state[f"b{i}_xv"][g], cfg)
                 x = x + _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg, i)[0]
             else:
                 tm_x, wkv, cm_x = (state[f"b{i}_{n}"][g] for n in ("tm_x", "wkv", "cm_x"))
@@ -370,36 +502,54 @@ def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
     return logits, state
 
 
-def _check_prompt(tokens, extra_embeds, frames) -> None:
-    if extra_embeds is not None or frames is not None:
-        raise NotImplementedError(
-            "VLM extra_embeds and audio frames come with a later slice of the port"
-        )
+def _check_prompt(cfg: ModelConfig, tokens, frames) -> None:
     if tokens.shape[1] < 1:
         raise ValueError("prefill needs at least one prompt token")
+    if cfg.has_encoder and frames is None:
+        raise ValueError("enc-dec model requires frames")
 
 
 def prefill(params, cfg: ModelConfig, tokens, state, extra_embeds=None, frames=None):
-    """Fill ``state`` from the prompt ``tokens`` (B, S >= 1) by one forward
-    (the flash-attention / WKV6 kernels on the card), which writes each
-    block's keys, values, last mix inputs and final WKV state into it, its
+    """Fill ``state`` from the prompt by one forward (the flash-attention /
+    WKV6 kernels on the card), which writes each block's keys (int8 ones
+    quantized), values, last mix inputs and final WKV state into it, its
     MoE layers routing position by position as decode steps do; returns
-    (the last position's logits (B, 1, V), state). :func:`prefill_stepwise`
-    is the same fill by S decode steps."""
+    (the last position's logits (B, 1, V), state).
+
+    The prompt is ``extra_embeds`` (B, P, D), if given, then ``tokens`` (B,
+    S >= 1): all P + S positions are written, so the next decode step is
+    at ``cur_len = P + S`` and, without MoE or an int8 cache, the last
+    logits are ``forward``'s last position (the JAX serve fns'
+    ``prefill``). With an int8 cache, the fill's attention reads the keys
+    and values quantized, as decode steps over the cache read them, so its
+    last logits are the decode loop's, not ``forward``'s. An
+    encoder arch needs ``frames`` (B, T, D), and the fill writes their
+    cross keys and values (:func:`cross_state`) into the state. Both go
+    past the JAX ``prefill`` (see the module's docstring).
+    :func:`prefill_stepwise` is the same fill by S decode steps, where the
+    prompt has no ``extra_embeds``."""
     check_supported(cfg)
-    _check_prompt(tokens, extra_embeds, frames)
+    _check_prompt(cfg, tokens, frames)
     with torch.inference_mode():
-        logits, _ = _forward(params, cfg, tokens, state=state)
+        logits, _ = _forward(params, cfg, tokens, state=state, extra_embeds=extra_embeds,
+                             frames=frames)
     return logits[:, -1:], state
 
 
 def prefill_stepwise(params, cfg: ModelConfig, tokens, state, extra_embeds=None,
                      frames=None):
     """The decode-loop fill: ``state`` from ``tokens`` (B, S >= 1) by S
-    decode steps, as the JAX ``prefill`` scans them; returns (the last
-    step's logits (B, 1, V), state). The oracle :func:`prefill` is held
-    against; one decode step a token, so slow on long prompts."""
-    _check_prompt(tokens, extra_embeds, frames)
+    decode steps at positions 0 .. S-1, as the JAX ``prefill`` scans them;
+    returns (the last step's logits (B, 1, V), state). The oracle
+    :func:`prefill` is held against; one decode step a token, so slow on
+    long prompts. Given ``frames``, the cross state is written first
+    (:func:`cross_state`), as the one-forward fill writes it; the
+    ``extra_embeds`` are not stepped over, as in the JAX ``prefill``
+    (whose scan covers the tokens alone), so with them this fill is not
+    :func:`prefill`'s."""
+    _check_prompt(cfg, tokens, frames)
+    if cfg.has_encoder:
+        cross_state(params, cfg, state, frames)
     logits = None
     for t in range(tokens.shape[1]):
         logits, state = decode_step(params, cfg, state, tokens[:, t:t + 1], t)

@@ -815,6 +815,28 @@ def test_flash_attention_at_the_new_archs_heads(cuda, dtype, H, KV, hd):
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", [
+    (4, 1, 1500, 12, 12, 64, False),  # Whisper-small's decode cross-attention
+    (4, 1500, 1500, 12, 12, 64, False),  # its encoder: 1,500 = 23 x 64 + 28
+    (4, 416, 1500, 12, 12, 64, False),  # its prefill cross-attention
+    (2, 2304, 2304, 14, 2, 64, True),  # InternVL2-1B: GQA ratio 7 over 256 + 2,048
+])
+def test_flash_attention_at_whisper_and_internvl2_layouts(cuda, dtype, B, S, T, H, KV, hd,
+                                                           causal):
+    g = torch.Generator().manual_seed(S + T + H)
+    q = torch.randn((B, S, H, hd), generator=g).to(dtype).to(cuda)
+    k = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(cuda)
+    v = torch.randn((B, T, KV, hd), generator=g).to(dtype).to(cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("case", ["normal", "small_integers", "zero"])
 def test_moe_routing_on_the_card_equals_the_cpu(cuda, case):
     """moe_route at DeepSeekMoE-16B's E = 64, K = 6 over 8,192 tokens: the

@@ -61,6 +61,28 @@ def test_matches_ref_and_pallas(B, S, T, H, KV, hd, causal, dtype):
     np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,T,H,KV,hd,causal",
+    [
+        (4, 1, 150, 12, 12, 64, False),  # Whisper's decode cross-attention: one query
+        (4, 150, 150, 12, 12, 64, False),  # its encoder: 150 = 2 x 64 + 22
+        (4, 42, 150, 12, 12, 64, False),  # its prefill cross-attention
+        (2, 230, 230, 14, 2, 64, True),  # InternVL2's 14 query heads over 2 KV heads
+    ],
+)
+def test_whisper_and_internvl2_layouts(B, S, T, H, KV, hd, causal, dtype):
+    """The layouts the encoder-decoder and VLM archs give the kernel, at
+    small S and T (on the card: 1,500 frames, 416 prompt tokens, 2,304
+    positions), against ``ref.attention`` and the Pallas kernel."""
+    q, k, v = _case(B, S, T, H, KV, hd)
+    got = _port(q, k, v, causal, dtype)
+    pallas = pallas_flash(*(jnp.asarray(a, dtype) for a in (q, k, v)), causal=causal,
+                          block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(got, _ref(q, k, v, causal, dtype), **_tol(dtype))
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **_tol(dtype))
+
+
 @pytest.mark.parametrize("B,S,T,H,KV,hd", [(2, 100, 100, 8, 2, 16), (1, 70, 131, 4, 1, 32)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_ragged_tiles_and_grouped_heads(B, S, T, H, KV, hd, causal):

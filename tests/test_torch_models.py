@@ -99,7 +99,8 @@ def test_other_archs_wait_for_a_later_slice(name):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(block_pattern=("attn", "mamba")), dict(encoder_layers=2), dict(kv_cache_dtype="int8"),
+    dict(block_pattern=("attn", "mamba")), dict(block_pattern=("mamba",)),
+    dict(block_pattern=("mamba", "attn"), kv_cache_dtype="int8"),
 ])
 def test_unported_blocks_raise(overrides):
     cfg = ModelConfig(name="x", family="dense", num_layers=2, d_model=64, num_heads=4,
