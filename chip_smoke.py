@@ -79,7 +79,10 @@ Phases, each of which must pass (any failure exits non-zero):
    decode state by one forward (its last logits against the prefill fn's),
    held against the decode loop on the first 64 prompt tokens (each
    against the float32 decode loop: the one-forward fill no farther than
-   twice the bfloat16 loop), then 32 decode steps;
+   twice the bfloat16 loop), then 32 decode steps; each arch's prefill
+   and decode step beside its analytic bound on one card
+   (``repro_torch.roofline``: ``max(cell_flops / 989 TFLOP/s,
+   cell_hbm_bytes / 3.35 TB/s)``) and their ratio;
 9. ``flash_attention`` and ``wkv6`` timed on the first layer's serving
    inputs (CUDA events, and for ``wkv6`` the profiler's device time and
    ptxas's registers), beside the plain version, the bound and, for
@@ -185,25 +188,30 @@ Phases, each of which must pass (any failure exits non-zero):
     backward of ``scaled_dot_product_attention``; the profiled training
     step must hold device time of every backward kernel it launched;
 15. the other archs on the card: (d) DeepSeekMoE-16B, Granite-MoE-1B,
-    MiniCPM3-4B, ChatGLM3-6B and Qwen2-72B at full width and 2 layers in
-    float32, the same weights on the CPU and the card (as
+    MiniCPM3-4B, ChatGLM3-6B and Jamba-1.5-Large (its lane's group one
+    attention and one Mamba block, 4 experts) at full width and 2 layers
+    in float32, the same weights on the CPU and the card (as
     phase 3), each MoE arch's routing (every pick, slot and kept mask of
     the forward, the fill and the decode loop) equal on both lanes, then
     again with zero routers (every probability tied: experts 0 .. K-1 on
     both); (a-c) each of them, Whisper-small (12 encoder and 12 decoder
-    layers, 1,500 frame embeddings from a seed, a 416-token prompt) and
+    layers, 1,500 frame embeddings from a seed, a 416-token prompt),
     InternVL2-1B (256 patch embeddings from a seed before the 2,048-token
-    prompt) served as phase 8 serves the two families, at full width and
-    depth (Qwen2-72B at 8 of its 80 layers), the kernel-path forward
+    prompt) and Jamba-1.5-Large served as phase 8 serves the two families,
+    at full width and depth (Qwen2-72B at 8 of its 80 layers; Jamba at one
+    8-layer group of its 9, 4 of its 16 experts), the kernel-path forward
     against the plain path and both against float32, the weights cast to
     float32 a layer at a time (a float32 copy of DeepSeekMoE-16B would not
     fit beside its bfloat16 weights), with ``flash_attention`` launched
     once a GQA layer (Whisper: 12 encoder, 12 causal and 12
     cross-attention launches in the prefill, 12 cross-attention launches a
     decode step) and never for MiniCPM3's MLA; for the two archs with a
-    frontend, a decode step after the fill held against the forward over
-    the prompt and that token; its prefill tokens/s, decode ms a step,
-    busy shares and peak memory printed; ``flash_attention`` timed at each
+    frontend or Mamba blocks, a decode step after the fill held against the
+    forward over the prompt and that token; for Jamba, the prefill's peak
+    memory above the weights below one whole-sequence (4, 2,048, 16,384,
+    16) float32 scan array (8.59 GB: the scan runs in chunks); its
+    prefill tokens/s, decode ms a step, busy shares, peak memory and
+    analytic bounds printed; ``flash_attention`` timed at each
     new layout beside its plain version and
     ``scaled_dot_product_attention``; (e) Qwen3-1.7B at full width and
     depth with the int8 KV cache: the cache's bytes against bfloat16's,
@@ -237,7 +245,6 @@ ROOT = Path(__file__).resolve().parent
 FULL_RSS = 3_250_585  # 12.4 GiB of 4 KiB pages: the paper's BFS RSS
 FULL_INTERVALS = 12
 SWEEP_FRACS = None  # set in main(): np.round(np.arange(1.0, 0.0, -0.05), 3)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ALU_OPS_PER_S = 67e12  # H100 SXM scalar (non-tensor-core) rate
 PCIE_BYTES_PER_S = 64e9  # PCIe Gen5 x16, one direction (the host tier)
 FP32_EPS = 2.0 ** -24  # unit roundoff of float32
@@ -264,15 +271,28 @@ PROBE_PAGES, PROBE_PAGE_ELEMS = 262_144, 1024
 # Model serving at full width: both families, 4 requests of 2,048-token
 # prompts and 32 greedy new tokens each, weights drawn from a seed on the card
 MODEL_FAMILIES = ("qwen3-1.7b", "rwkv6-3b")
-# Phase 15: the MoE, MLA and remaining dense archs, served as phase 8 serves
-# the two families; Qwen2-72B at 8 of its 80 layers (all 80 take about 145
-# GB in bfloat16, one card has 80)
+# Phase 15: the MoE, MLA, remaining dense, encoder-decoder, VLM and hybrid
+# archs, served as phase 8 serves the two families
 MORE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m", "minicpm3-4b", "chatglm3-6b",
-              "qwen2-72b", "whisper-small", "internvl2-1b")
-# the archs whose CPU and CUDA lanes phase 15 compares: those without a
-# frontend
-LANE_ARCHS_15 = MORE_ARCHS[:5]
-ARCH_LAYERS = {"qwen2-72b": 8}
+              "qwen2-72b", "whisper-small", "internvl2-1b", "jamba-1.5-large-398b")
+# The cuts that make an arch fit one card (80 GB), at its published widths:
+# Qwen2-72B at 8 of its 80 layers (all 80 take about 145 GB in bfloat16);
+# Jamba-1.5-Large at one 8-layer group (one attention and seven Mamba
+# blocks) of its 9, with 4 of its 16 experts (top-2 kept): 16.25 B
+# parameters, 32.5 GB (one group with all 16 experts is 90.5 GB)
+ARCH_OVERRIDES = {"qwen2-72b": {"num_layers": 8},
+                  "jamba-1.5-large-398b": {"num_layers": 8, "n_experts": 4}}
+# the archs whose CPU and CUDA lanes phase 15 compares at full width and
+# LANE_LAYERS layers: those without a frontend but Qwen2-72B (its two
+# layers and head are 17 GB of float32 CPU work; ChatGLM3-6B's lane covers
+# its QKV bias, and its CPU tests hold it against the JAX package)
+LANE_ARCHS_15 = ("deepseek-moe-16b", "granite-moe-1b-a400m", "minicpm3-4b", "chatglm3-6b",
+                 "jamba-1.5-large-398b")
+# Jamba's lane: two layers of its pattern are not a whole group, so the
+# lane's group is an attention and a Mamba block (the Mamba block's FFN
+# MoE, 4 experts): 4.67 B parameters, 18.7 GB in float32
+LANE_OVERRIDES = {"jamba-1.5-large-398b": {"block_pattern": ("attn", "mamba"),
+                                           "n_experts": 4}}
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
 # Whisper's text context is 448 tokens: a 416-token prompt and 32 new ones
 PROMPT_LENS = {"whisper-small": 416}
@@ -292,7 +312,6 @@ INT8_LOGIT_TOL = 0.1
 INT8_STEP_BOUND = 1.5
 ORACLE_LEN = 64  # prompt tokens the decode-loop oracle of the state fill replays
 PROFILED_STEPS = 4  # decode steps read by the profiler; the rest are timed
-BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 # The forward through the kernels is held against the same forward through
 # their plain versions on the card, in bfloat16, by the relative L2 error of
 # the logits. The two paths round each attention / WKV output to bfloat16 at
@@ -725,6 +744,7 @@ def time_victim_partition(capture: dict) -> dict:
         victim_partition,
         victim_partition_plain,
     )
+    from repro_torch.roofline import HW
 
     fast01, demand = capture["fast01"], capture["demand"]
     n, r = fast01.shape
@@ -750,7 +770,7 @@ def time_victim_partition(capture: dict) -> dict:
     read_bytes = int(need.sum()) * 4 + n * 4
     write_bytes = n * r * 4
     ops = 2 * int(need.sum())  # one add and one compare per element read
-    bytes_ms = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
+    bytes_ms = (read_bytes + write_bytes) / HW.hbm_bw * 1e3
     ops_ms = ops / ALU_OPS_PER_S * 1e3
     return {
         "design": f"single-pass scan, tiles of {TILE} elements, decoupled "
@@ -1246,6 +1266,7 @@ def time_migrate(dev, capture: dict) -> dict:
     import torch
 
     from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
+    from repro_torch.roofline import HW
 
     kv = capture["server"].kv
     page_b = kv.cfg.bytes_per_page
@@ -1292,7 +1313,7 @@ def time_migrate(dev, capture: dict) -> dict:
                   "device_ms": profiled_ms(d2d, "migrate_kernel"),
                   "index_copy_ms": cuda_ms(index_copy, repeats=20),
                   "index_copy_device_ms": profiled_ms(index_copy),
-                  "bound_ms": 2 * len(di) * page_b / HBM_BYTES_PER_S * 1e3}
+                  "bound_ms": 2 * len(di) * page_b / HW.hbm_bw * 1e3}
     return out
 
 
@@ -1315,6 +1336,7 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
         paged_decode_attention_plain,
         paged_decode_attention_split_plain,
     )
+    from repro_torch.roofline import HW
 
     kv = capture["server"].kv
     batch = capture["last_batch"]
@@ -1380,7 +1402,7 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
     tokens = int(lens.sum())
     kv_bytes = 2 * tokens * p["kv_heads"] * p["head_dim"] * 2
     io_bytes = 2 * q.numel() * 2 + tbl.nbytes + lens.nbytes
-    bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    bytes_ms = (kv_bytes + io_bytes) / HW.hbm_bw * 1e3
     ops_ms = 4 * tokens * QWEN3_1_7B_QUERY_HEADS * p["head_dim"] / ALU_OPS_PER_S * 1e3
     n_splits = -(-ppseq // pps)
     return {
@@ -1410,6 +1432,7 @@ def probe_tiers(dev) -> dict:
     import torch
 
     from repro_torch.kernels.strided_probe import strided_probe, strided_probe_plain
+    from repro_torch.roofline import HW
 
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(18)
@@ -1451,7 +1474,7 @@ def probe_tiers(dev) -> dict:
         device_ms = profiled_ms(call, "probe_kernel", "combine_kernel", calls=5)
         batch_ms = batched_ms(call, calls=5)
         fb, sb = fi.numel() * page_b, si.numel() * page_b
-        bytes_ms = max(fb / HBM_BYTES_PER_S, sb / PCIE_BYTES_PER_S) * 1e3
+        bytes_ms = max(fb / HW.hbm_bw, sb / PCIE_BYTES_PER_S) * 1e3
         ops_ms = 2 * ai * (fi.numel() + si.numel()) * PROBE_PAGE_ELEMS / ALU_OPS_PER_S * 1e3
         rows[f"{mix}_ai{ai}"] = {
             "ms": ms, "device_ms": device_ms, "batch_ms": batch_ms,
@@ -1731,16 +1754,17 @@ def wkv6_bwd_checks(dev) -> float:
 
 # ------------------------------------------------------------ phase 3, models
 @contextlib.contextmanager
-def recorded_routes():
+def recorded_routes(logits: bool = False):
     """Every MoE routing decision inside the block: a list of (picks, pos,
-    keep) of each ``moe_route`` call, copied to the CPU."""
+    keep) of each ``moe_route`` call, copied to the CPU, and with
+    ``logits`` the router logits after them."""
     from repro_torch.models import layers as L
 
-    route, seen = L.moe_route, []
+    route, seen, keep_logits = L.moe_route, [], logits
 
     def recording(logits, K, C):
         out = route(logits, K, C)
-        seen.append(tuple(t.cpu() for t in out[2:]))
+        seen.append(tuple(t.cpu() for t in out[2:] + ((logits,) if keep_logits else ())))
         return out
 
     L.moe_route = recording
@@ -1758,10 +1782,11 @@ def _same_routes(a: list, b: list) -> bool:
 
 
 def model_lanes_agree(dev, names=MODEL_FAMILIES, draw_on=None) -> dict:
-    """Each arch of ``names`` at full width and 2 layers, in float32, the
-    same weights (drawn from a seed on ``draw_on``, the CPU by default, and
-    copied to each lane) on the CPU and on the card: the forward's logits
-    and a 4-token prefill's logits and decode state within LANE_TOL; on
+    """Each arch of ``names`` at full width and 2 layers (with its
+    LANE_OVERRIDES), in float32, the same weights (drawn from a seed on
+    ``draw_on``, the CPU by default, and copied to each lane) on the CPU
+    and on the card: the forward's logits and a 4-token prefill's logits
+    and decode state within LANE_TOL; on
     each lane, that prefill (one forward) against the decode loop
     (``prefill_stepwise``, its oracle) within LANE_TOL too. An MoE arch's
     routing (every pick, slot and kept mask of the forward, the fill and
@@ -1780,11 +1805,13 @@ def model_lanes_agree(dev, names=MODEL_FAMILIES, draw_on=None) -> dict:
         prefill,
         prefill_stepwise,
     )
+    from repro_torch.models.transformer import _is_moe_layer
 
     out = {}
     for name in names:
         cfg = replace(get_config(name), num_layers=LANE_LAYERS,
-                      param_dtype="float32", compute_dtype="float32")
+                      param_dtype="float32", compute_dtype="float32",
+                      **LANE_OVERRIDES.get(name, {}))
         where = draw_on or torch.device("cpu")
         params = _to(init_model(cfg, generator=torch.Generator(device=where).manual_seed(23),
                                 device=where), "cpu")
@@ -1822,8 +1849,10 @@ def model_lanes_agree(dev, names=MODEL_FAMILIES, draw_on=None) -> dict:
         out[name] = {"max_abs_diff": diffs, "logits_max_abs": float(lc.abs().max()),
                      "prefill_vs_decode_loop_max_abs_diff": {"cpu": oc, "cuda": og}}
         if cfg.n_experts:
-            # a call a layer in the forward, the fill and each of 4 decode steps
-            check(len(routes["cpu"]) == 6 * LANE_LAYERS
+            # a call an MoE layer in the forward, the fill and each of 4
+            # decode steps
+            n_moe = sum(_is_moe_layer(cfg, i % cfg.group_size) for i in range(cfg.num_layers))
+            check(len(routes["cpu"]) == 6 * n_moe
                   and _same_routes(routes["cpu"], routes["cuda"]),
                   f"{name}: MoE routing differs between the CPU and CUDA lanes")
             out[name]["routing_equal_calls"] = len(routes["cpu"])
@@ -1923,10 +1952,12 @@ def _to(params, where):
 
 
 class Float32Layers(collections.abc.Sequence):
-    """A model's layers read as float32 copies made when a layer (or a
-    slice of them) is taken, and dropped after use: the float32 reference
-    of a model whose float32 copy would not fit beside its bfloat16
-    weights (DeepSeekMoE-16B: 67.6 + 33.8 GB) holds one layer at a time."""
+    """A model's layers read as float32 copies made when a layer is taken,
+    and dropped after use: the float32 reference of a model whose float32
+    copy would not fit beside its bfloat16 weights (DeepSeekMoE-16B: 67.6
+    + 33.8 GB) holds one layer at a time. A slice (a layer group, which
+    ``forward`` takes at once: Jamba's is 8 layers, 65 GB in float32) is
+    another such view."""
 
     def __init__(self, layers):
         self.layers = layers
@@ -1938,7 +1969,7 @@ class Float32Layers(collections.abc.Sequence):
         import torch
 
         if isinstance(i, slice):
-            return [_to(lp, torch.float32) for lp in self.layers[i]]
+            return Float32Layers(self.layers[i])
         return _to(self.layers[i], torch.float32)
 
 
@@ -2016,8 +2047,44 @@ def attention_launches(cfg) -> tuple:
     return (layers if cfg.attn_type == "gqa" else 0) + cfg.encoder_layers + cross, cross
 
 
-def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) -> dict:
-    """One arch at full width (and ``num_layers`` layers, all by default)
+def analytic_bounds(cfg, n_params: int, seq: int, prefill_ms: float,
+                    decode_seq: int, decode_ms: float) -> dict:
+    """The analytic roofline of a served arch on one card
+    (``repro_torch.roofline``): the prefill of SERVE_BATCH x ``seq``
+    positions and a decode step of SERVE_BATCH tokens at ``decode_seq``
+    positions of context, each bound ``max(cell_flops / peak, cell_hbm_bytes
+    / bandwidth)`` with the card's rates (``roofline.HW``), beside the measured time
+    and their ratio (measured / bound)."""
+    from repro_torch.roofline import cell_flops, cell_hbm_bytes, roofline_terms
+
+    out = {}
+    for kind, n, ms in (("prefill", seq, prefill_ms), ("decode", decode_seq, decode_ms)):
+        flops = cell_flops(cfg, kind, SERVE_BATCH, n)
+        hbm = cell_hbm_bytes(cfg, kind, SERVE_BATCH, n, n_params)
+        terms = roofline_terms(flops, hbm, 0.0, 1)
+        bound_ms = terms["step_time_s"] * 1e3
+        out[kind] = {"seq": n, "tflop": flops / 1e12, "hbm_gb": hbm / 1e9,
+                     "bound_ms": bound_ms, "bound_by": terms["bottleneck"],
+                     "measured_ms": ms, "ratio": ms / bound_ms}
+    return out
+
+
+def bound_line(name: str, row: dict) -> str:
+    from repro_torch.roofline import HW
+
+    a = row["analytic"]
+    return (f"   {name}: analytic bound on one card ({HW.peak_flops / 1e12:g} TFLOP/s "
+            f"bf16, {HW.hbm_bw / 1e12:g} TB/s HBM): prefill "
+            f"{a['prefill']['bound_ms']:.3f} ms ({a['prefill']['bound_by']}) against "
+            f"{a['prefill']['measured_ms']:.3f} ms measured, ratio "
+            f"{a['prefill']['ratio']:.2f}; a decode step {a['decode']['bound_ms']:.3f} ms "
+            f"({a['decode']['bound_by']}) against {a['decode']['measured_ms']:.3f} ms, ratio "
+            f"{a['decode']['ratio']:.2f}")
+
+
+def serve_model(name: str, dev, capture: dict, overrides: dict | None = None) -> dict:
+    """One arch at full width (cut by ``overrides``, ARCH_OVERRIDES, where
+    it would not fit one card)
     through repro_torch.launch.serve: 4 prompts of 2,048 tokens (Whisper:
     416, after 1,500 frames; InternVL2: after 256 patch embeddings)
     prefilled (the kernel counts set to 0 just before the counted call and
@@ -2028,8 +2095,14 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
     (``prefill``) and held against the decode loop on the first ORACLE_LEN
     tokens (``fill_oracle``), with a frontend a decode step after the fill
     held against the forward over the prompt and that token
-    (``continuation_check``), then 32 greedy decode steps (their
-    ``flash_attention`` launches counted). ``capture`` receives the first
+    (``continuation_check``; also for an arch with Mamba blocks, whose
+    fill scans in chunks), then 32 greedy decode steps (their
+    ``flash_attention`` launches counted). The timed prefill's peak
+    memory above what was allocated before it (the weights) is reported;
+    for an arch with Mamba blocks it must stay below one (B, S, d_inner,
+    d_state) float32 array, the size of a scan over the whole sequence at
+    once. ``analytic`` holds the analytic bounds (``analytic_bounds``).
+    ``capture`` receives the first
     layer's kernel inputs and, under ``"flash_layouts"``, the first call
     of each (S, T, causal) layout of ``flash_attention``."""
     from dataclasses import replace
@@ -2049,9 +2122,7 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
         prefill,
     )
 
-    cfg = get_config(name)
-    if num_layers is not None:
-        cfg = replace(cfg, num_layers=num_layers)
+    cfg = replace(get_config(name), **(overrides or {}))
     prompt_len = PROMPT_LENS.get(name, PROMPT_LEN)
     prefix = cfg.frontend_len if cfg.frontend == "vision_stub" else 0
     torch.cuda.synchronize()
@@ -2109,10 +2180,21 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
     kernel_device_ms = sum(e.device_time_total for e in traced) / 1e3
     top_kernels = _top_kernels(prof)
     del prof
+    torch.cuda.synchronize()
+    peak_before = torch.cuda.max_memory_allocated()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     again = fns["prefill"](params, tokens, **inputs)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
+    prefill_peak_above = torch.cuda.max_memory_allocated() - base
+    if "mamba" in cfg.block_pattern:
+        whole_scan = SERVE_BATCH * (prefix + prompt_len) * cfg.d_inner * cfg.mamba_d_state * 4
+        check(prefill_peak_above < whole_scan,
+              f"{name}: the prefill's peak memory above the weights is "
+              f"{prefill_peak_above} bytes, not below one whole-sequence float32 scan "
+              f"array ({whole_scan} bytes): the Mamba scan is not chunked")
     check(bool(torch.isfinite(first).all())
           and first.shape == (SERVE_BATCH, 1, cfg.vocab_size),
           f"{name}: prefill logits not finite or of the wrong shape")
@@ -2155,7 +2237,7 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
                          frames=inputs.get("frames"))
     continuation = (continuation_check(params, params32, cfg, cfg32, tokens, inputs, last,
                                        state, prefix + prompt_len)
-                    if inputs else None)
+                    if inputs or "mamba" in cfg.block_pattern else None)
     del params32
 
     # 4. 32 greedy decode steps: the first PROFILED_STEPS under the profiler
@@ -2191,9 +2273,11 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
     check(bool(torch.isfinite(logits).all())
           and bool(((out_tokens >= 0) & (out_tokens < cfg.vocab_size)).all()),
           f"{name}: decode gave non-finite logits or bad tokens")
+    n_params = param_count(params)
     result = {
-        "params": param_count(params),
+        "params": n_params,
         "active_params": active_param_count(params, cfg),
+        "overrides": overrides or {},
         "layers": cfg.num_layers,
         "encoder_layers": cfg.encoder_layers,
         "requests": SERVE_BATCH, "prompt_len": prompt_len, "new_tokens": NEW_TOKENS,
@@ -2222,7 +2306,10 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
         "decode_device_ms_per_step": decode_device_ms,
         "decode_device_busy_share": decode_device_ms / decode_ms,
         "decode_tokens_per_s": SERVE_BATCH * 1e3 / decode_ms,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "analytic": analytic_bounds(cfg, n_params, prefix + prompt_len, prefill_s * 1e3,
+                                    prefix + prompt_len + NEW_TOKENS // 2, decode_ms),
+        "prefill_peak_memory_above_weights_bytes": prefill_peak_above,
+        "peak_memory_bytes": max(peak_before, torch.cuda.max_memory_allocated()),
         "wall_s": time.perf_counter() - t_all,
     }
     del params, state, first, last, logits, tokens, inputs
@@ -2234,29 +2321,44 @@ def serve_model(name: str, dev, capture: dict, num_layers: int | None = None) ->
 def continuation_check(params, params32, cfg, cfg32, tokens, inputs, last, state,
                        cur_len: int) -> dict:
     """A decode step after the one-forward fill, at ``cur_len`` (the
-    prompt's positions, patch embeddings included), against the forward
-    over the prompt and that step's token: both in bfloat16 against the
-    float32 forward, the step's distance (relative L2) at most
-    MODEL_PATH_FACTOR times the bfloat16 forward's. ``state`` is copied;
-    the fill's own state decodes on afterwards."""
+    prompt's positions, patch embeddings included), against float32: its
+    distance (relative L2) at most MODEL_PATH_FACTOR times the bfloat16
+    model's own (``bar``). Without MoE the reference is the forward over
+    the prompt and that step's token, and the bar the bfloat16 forward's
+    distance from the float32 one. A decode step's MoE routes the batch's
+    B tokens with the capacity of B tokens, where ``forward`` routes all of
+    them at once, so for an MoE arch the reference is the float32 fill and
+    decode step, and the bar the bfloat16 fill's last logits' distance
+    from the float32 fill's. ``state`` is copied; the fill's own state
+    decodes on afterwards."""
     import torch
 
-    from repro_torch.models import decode_step, forward
+    from repro_torch.models import decode_step, forward, init_decode_state, prefill
 
     tok = last[:, -1].argmax(-1, keepdim=True)
     st = {k: v.clone() for k, v in state.items()}
     step, _ = decode_step(params, cfg, st, tok, cur_len)
     del st
-    longer = torch.cat([tokens, tok], dim=1)
-    with torch.inference_mode():
-        fwd = forward(params, cfg, longer, **inputs)[0][:, -1:]
-        fwd32 = forward(params32, cfg32, longer, **inputs)[0][:, -1:]
-    row = {"decode_step": _rel_l2(step, fwd32), "forward": _rel_l2(fwd, fwd32),
-           "top1_agree": float((step[:, -1].argmax(-1) == fwd32[:, -1].argmax(-1)).float().mean())}
-    check(row["decode_step"] <= MODEL_PATH_FACTOR * row["forward"],
+    if cfg.n_experts:
+        enc_len = inputs["frames"].shape[1] if "frames" in inputs else 0
+        st32 = init_decode_state(cfg32, tokens.shape[0], cur_len + 1, enc_len,
+                                 device=tokens.device)
+        last32, st32 = prefill(params32, cfg32, tokens, st32, **inputs)
+        ref, _ = decode_step(params32, cfg32, st32, tok, cur_len)
+        del st32
+        bar, against = _rel_l2(last, last32), "float32 fill and decode step"
+    else:
+        longer = torch.cat([tokens, tok], dim=1)
+        with torch.inference_mode():
+            fwd = forward(params, cfg, longer, **inputs)[0][:, -1:]
+            ref = forward(params32, cfg32, longer, **inputs)[0][:, -1:]
+        bar, against = _rel_l2(fwd, ref), "float32 forward over the prompt and the token"
+    row = {"against": against, "decode_step": _rel_l2(step, ref), "bar": bar,
+           "top1_agree": float((step[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).float().mean())}
+    check(row["decode_step"] <= MODEL_PATH_FACTOR * row["bar"],
           f"{cfg.name}: a decode step after the fill is {row['decode_step']:.3g} from the "
-          f"float32 forward over the prompt and its token, beyond {MODEL_PATH_FACTOR} x "
-          f"the bfloat16 forward's {row['forward']:.3g}")
+          f"{against}, beyond {MODEL_PATH_FACTOR} x the bfloat16 model's "
+          f"{row['bar']:.3g}")
     return row
 
 
@@ -2267,6 +2369,33 @@ def _rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-300))
 
 
+def _row_ulp(logits):
+    """The bfloat16 ulp at each row's largest |router logit| (..., E): the
+    scale of the rounding by which two fills' logits of a token differ,
+    since each logit sums over the whole residual row."""
+    import torch
+
+    top = logits.double().abs().amax(dim=-1).clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def _cut_ulps(logits, K: int):
+    """The top-K cut of router ``logits`` (..., E), the K-th less the
+    (K+1)-th largest logit, in ``_row_ulp``s."""
+    v = logits.double().sort(dim=-1, descending=True).values
+    return (v[..., K - 1] - v[..., K]) / _row_ulp(logits)
+
+
+def _last_routes(calls: list, n_moe: int, one_forward: bool) -> tuple:
+    """(picks, keep, router logits) of the last prompt position at the last
+    MoE layer of a fill, (B, K), (B, K) and (B, E): the one-forward fill
+    routes each position as a group (one call a layer), the decode loop
+    one position a call."""
+    c = calls[n_moe - 1] if one_forward else calls[-1]
+    i = -1 if one_forward else 0
+    return c[0][i], c[2][i], c[3][i]
+
+
 def fill_oracle(params, params32, cfg, cfg32, prompt, dev, frames=None) -> dict:
     """``prefill`` (one forward) against ``prefill_stepwise`` (the decode
     loop, one step a token) on ``prompt`` (and an encoder arch's
@@ -2274,35 +2403,80 @@ def fill_oracle(params, params32, cfg, cfg32, prompt, dev, frames=None) -> dict:
     size: each is held against the float32 decode loop, and the
     one-forward fill's distance (relative L2, last logits and every state
     tensor) must be at most MODEL_PATH_FACTOR times the decode loop's.
-    Also reports the float32 fills' distance from each other."""
+    Also reports the float32 fills' distance from each other.
+
+    When the last layer's FFN is an MoE, the two bfloat16 fills' routing of
+    the last position there is reported: the rows they route otherwise,
+    each fill's top-K cut and their router logits' difference in
+    ``_row_ulp``s, and the router logits' distance from the float32 loop's.
+    A row the fills route otherwise takes other experts in that layer
+    alone, which moves the last logits and no state entry. Only where the
+    last logits fail over all rows may such a row be left out of them: one
+    row at most, where the one-forward fill's router logits sit within
+    MODEL_PATH_FACTOR times the bfloat16 loop's distance from the float32
+    loop's (so the routing input is as exact as the oracle's, and the
+    other picks come from a cut within the rounding), and the other rows
+    must then pass."""
     import torch
 
     from repro_torch.models import init_decode_state, prefill, prefill_stepwise
+    from repro_torch.models.transformer import _is_moe_layer
 
     B, S = prompt.shape
     enc_len = frames.shape[1] if frames is not None else 0
     out = {"tokens": S}
-    runs = {}
+    runs, routes = {}, {}
     for key, fill, p, c in (("one", prefill, params, cfg),
                             ("loop", prefill_stepwise, params, cfg),
                             ("one32", prefill, params32, cfg32),
                             ("loop32", prefill_stepwise, params32, cfg32)):
         t = time.perf_counter()
-        last, st = fill(p, c, prompt, init_decode_state(c, B, S, enc_len, device=dev),
-                        frames=frames)
+        with recorded_routes(logits=True) as routes[key]:
+            last, st = fill(p, c, prompt, init_decode_state(c, B, S, enc_len, device=dev),
+                            frames=frames)
         torch.cuda.synchronize()
         out[f"{key}_s"] = time.perf_counter() - t
         runs[key] = {"last_logits": last, **st}
-    rows = {}
-    for k in runs["loop32"]:
-        ref = runs["loop32"][k]
-        row = {"one": _rel_l2(runs["one"][k], ref), "loop": _rel_l2(runs["loop"][k], ref),
-               "one32": _rel_l2(runs["one32"][k], ref)}
+
+    def distances(k, rows=slice(None)):
+        ref = runs["loop32"][k][rows]
+        return {"one": _rel_l2(runs["one"][k][rows], ref),
+                "loop": _rel_l2(runs["loop"][k][rows], ref),
+                "one32": _rel_l2(runs["one32"][k], runs["loop32"][k])}
+
+    rows = {k: distances(k) for k in runs["loop32"]}
+    if _is_moe_layer(cfg, (cfg.num_layers - 1) % cfg.group_size):
+        n_moe = sum(_is_moe_layer(cfg, i % cfg.group_size) for i in range(cfg.num_layers))
+        one, loop, loop32 = (_last_routes(routes[k], n_moe, k == "one")
+                             for k in ("one", "loop", "loop32"))
+        otherwise = [b for b in range(B) if not (torch.equal(one[0][b], loop[0][b])
+                                                 and torch.equal(one[1][b], loop[1][b]))]
+        router = {"one": _rel_l2(one[2], loop32[2]), "loop": _rel_l2(loop[2], loop32[2])}
+        out["last_moe_layer"] = {
+            "rows_routed_otherwise": otherwise,
+            "cut_ulps": {k: _cut_ulps(r[2], cfg.top_k).tolist()
+                         for k, r in (("one", one), ("loop", loop))},
+            "fills_differ_ulps": ((one[2] - loop[2]).double().abs().amax(-1)
+                                  / _row_ulp(loop[2])).tolist(),
+            "router_logits_rel_l2_from_f32_decode_loop": router}
+        last = rows["last_logits"]
+        if last["one"] > MODEL_PATH_FACTOR * last["loop"]:
+            check(len(otherwise) == 1 and router["one"] <= MODEL_PATH_FACTOR * router["loop"],
+                  f"{cfg.name}: the one-forward fill's last_logits is {last['one']:.3g} from "
+                  f"the float32 decode loop, beyond {MODEL_PATH_FACTOR} x the bfloat16 decode "
+                  f"loop's {last['loop']:.3g}, and it is not one row the fills route otherwise "
+                  f"from router logits as near float32 as the loop's: {out['last_moe_layer']}")
+            out["last_logits_all_rows"] = last
+            out["last_logits_rows_left_out"] = {
+                b: {"router_logits_one": one[2][b].tolist(),
+                    "router_logits_loop": loop[2][b].tolist()} for b in otherwise}
+            rows["last_logits"] = distances(
+                "last_logits", [b for b in range(B) if b not in otherwise])
+    for k, row in rows.items():
         check(row["one"] <= MODEL_PATH_FACTOR * row["loop"],
               f"{cfg.name}: the one-forward fill's {k} is {row['one']:.3g} from the "
               f"float32 decode loop, beyond {MODEL_PATH_FACTOR} x the bfloat16 decode "
               f"loop's {row['loop']:.3g}")
-        rows[k] = row
     out["rel_l2_from_f32_decode_loop"] = rows
     return out
 
@@ -2323,6 +2497,7 @@ def time_flash(call) -> dict:
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.roofline import HW
 
     (q, k, v), kw = call
     causal = kw.get("causal", True)
@@ -2348,8 +2523,8 @@ def time_flash(call) -> dict:
     library_ms = cuda_ms(sdpa, repeats=20)
     flops = 4 * B * H * hd * _visible_pairs(S, T, causal)
     io_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
-    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / HW.peak_flops * 1e3
+    bytes_ms = io_bytes / HW.hbm_bw * 1e3
     return {
         "design": "mma.sync m16n8k16 bf16, cp.async ring" if q.dtype == torch.bfloat16
                   else "float32 FMA",
@@ -2370,6 +2545,7 @@ def time_wkv6(capture: dict) -> dict:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.wkv6 import wkv6, wkv6_grid, wkv6_plain
+    from repro_torch.roofline import HW
 
     (r, k, v, w, u), _ = capture["wkv6"]
     B, S, H, hd = r.shape
@@ -2391,7 +2567,7 @@ def time_wkv6(capture: dict) -> dict:
     io_bytes = (sum(x.numel() * x.element_size() for x in (r, k, v, w, u))
                 + r.numel() * r.element_size() + B * H * hd * hd * 4)
     ops_ms = flops / ALU_OPS_PER_S * 1e3
-    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = io_bytes / HW.hbm_bw * 1e3
     return {
         "max_abs_err": err, "ms": ms, "device_ms": device_ms, "batch_ms": batch_ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
@@ -2408,7 +2584,8 @@ def time_wkv6(capture: dict) -> dict:
 def more_archs(dev) -> dict:
     """Phase 15: (d) the CPU and CUDA lanes of LANE_ARCHS_15 at full width
     and LANE_LAYERS layers, then (a-c) each of
-    MORE_ARCHS served at full width (ARCH_LAYERS cuts the depth) through
+    MORE_ARCHS served at full width (ARCH_OVERRIDES cuts the depth, and
+    Jamba's experts) through
     ``serve_model``, ``flash_attention`` timed at each layout the prefill
     gave it (and, for an encoder arch, at the decode step's: the prefill's
     cross-attention keys and values and its last query row), and (e) the
@@ -2420,7 +2597,7 @@ def more_archs(dev) -> dict:
     for name in MORE_ARCHS:
         t = time.perf_counter()
         capture: dict = {}
-        out["served"][name] = serve_model(name, dev, capture, ARCH_LAYERS.get(name))
+        out["served"][name] = serve_model(name, dev, capture, ARCH_OVERRIDES.get(name))
         layouts = capture["flash_layouts"]
         for (S, T, causal), ((q, k, v), kw) in list(layouts.items()):
             if not causal and S not in (1, T):  # cross-attention; a decode step's: 1 query
@@ -3842,6 +4019,7 @@ def replay_cost(args) -> dict:
     by ``chain_latency_ns`` over the launch's largest ``n_pages``. The bound
     is the largest of the three; the chain counts as operations."""
     from repro_torch.kernels.timing_replay import chain_bound_ms, chain_latency_ns
+    from repro_torch.roofline import HW
 
     page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
     n_ev = page.numel()
@@ -3851,7 +4029,7 @@ def replay_cost(args) -> dict:
     bytes_moved = n_ev * 21 + n_rep * (8 * 4 + 16) + n_rep * 8 + int(n_pages.sum()) * 8
     ops = 6 * n_ev
     links = chain_latency_ns(int(n_pages.max()), page.device)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bytes_ms = bytes_moved / HW.hbm_bw * 1e3
     chain_ms = chain_bound_ms(ev_off, w_slots, links)
     ops_ms = max(ops / F64_OPS_PER_S * 1e3, chain_ms)
     return {"events": n_ev, "replays": n_rep, "windows": int(windows.sum()),
@@ -4887,6 +5065,7 @@ def time_flash_bwd(capture: dict) -> dict:
 
     from repro_torch.kernels.flash_attention import (
         _launch, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.roofline import HW
 
     q, k, v = capture["flash_attention"]
     B, S, H, hd = q.shape
@@ -4915,8 +5094,8 @@ def time_flash_bwd(capture: dict) -> dict:
     flops = 10 * B * H * hd * _visible_pairs(S, T, True)
     io_bytes = ((3 * q.numel() + 2 * k.numel() + 2 * v.numel() + q.numel() + k.numel()
                  + v.numel()) * q.element_size() + lse.numel() * 4)
-    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
-    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / HW.peak_flops * 1e3
+    bytes_ms = io_bytes / HW.hbm_bw * 1e3
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -4934,6 +5113,7 @@ def time_wkv6_bwd(capture: dict) -> dict:
     import torch
 
     from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_bwd_plain
+    from repro_torch.roofline import HW
 
     r, k, v, w, u = capture["wkv6"]
     B, S, H, hd = r.shape
@@ -4954,7 +5134,7 @@ def time_wkv6_bwd(capture: dict) -> dict:
     io_bytes = (n * r.element_size() * (4 + 3)  # r, k, v, do read; dr, dk, dv written
                 + n * 4 * 2 + u.numel() * 4 * 2)  # w read, dw written; u, du
     ops_ms = flops / ALU_OPS_PER_S * 1e3
-    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = io_bytes / HW.hbm_bw * 1e3
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -5116,6 +5296,7 @@ def main() -> int:
         served[name] = serve_model(name, dev, model_capture)
         log(f"== 8 model serving at full width, {name}: {SERVE_BATCH} requests of "
             f"{PROMPT_LEN} + {NEW_TOKENS} tokens in {time.perf_counter() - t:.2f} s")
+        log(bound_line(name, served[name]))
         log("   " + json.dumps(served[name]))
 
     t = time.perf_counter()
@@ -5225,19 +5406,23 @@ def main() -> int:
 
     t = time.perf_counter()
     more = more_archs(dev)
-    log(f"== 15 the MoE, MLA, dense, encoder-decoder and VLM archs and the int8 KV "
-        f"cache served on the card ({card}), {SERVE_BATCH} requests of {PROMPT_LEN} "
+    log(f"== 15 the MoE, MLA, dense, encoder-decoder, VLM and hybrid archs and the "
+        f"int8 KV cache served on the card ({card}), {SERVE_BATCH} requests of {PROMPT_LEN} "
         f"+ {NEW_TOKENS} tokens (Whisper-small: 1,500 frames, {PROMPT_LENS['whisper-small']}"
         f" + {NEW_TOKENS}), in {time.perf_counter() - t:.2f} s")
+    log(f"   cuts for one card: {json.dumps(ARCH_OVERRIDES)}; lanes: {json.dumps(LANE_OVERRIDES)}")
     log(f"   (d) CPU lane == CUDA lane at full width, {LANE_LAYERS} layers, float32, "
         f"within {LANE_TOL}, MoE routing equal: " + json.dumps(more["lanes"]))
+    for name, row in more["served"].items():
+        log(bound_line(name, row))
     for name, row in more["served"].items():
         log(f"   (a-c) {name}, {row['layers']} layers: prefill "
             f"{row['prefill_tokens_per_s']:.1f} tokens/s, decode "
             f"{row['decode_ms_per_step']:.3f} ms a step, busy share prefill "
             f"{row['prefill_device_busy_share']:.3f} / decode "
             f"{row['decode_device_busy_share']:.3f}, peak memory "
-            f"{row['peak_memory_bytes']} bytes, flash_attention launches "
+            f"{row['peak_memory_bytes']} bytes ({row['prefill_peak_memory_above_weights_bytes']}"
+            f" above the weights in the prefill), flash_attention launches "
             f"{row['launches']['flash_attention']} in the prefill, "
             f"{row['decode_flash_attention_launches_per_step']:g} a decode step")
         log("   " + json.dumps(row))

@@ -1,14 +1,13 @@
 """Architectures x input shapes (the 40-cell grid of the JAX package).
 
-Each ported architecture is one module here holding ``CONFIG`` with the
-published dimensions: the dense-GQA Qwen3-1.7B, ChatGLM3-6B and Qwen2-72B,
-the MLA MiniCPM3-4B, the MoE DeepSeekMoE-16B and Granite-MoE-1B, the
-attention-free RWKV6-3B, the encoder-decoder Whisper-small and the VLM
-InternVL2-1B (their frontends stubs, as in the JAX package). Jamba's Mamba
-blocks come with a later slice of the port, and ``get_config`` raises
-``NotImplementedError`` for it. ``long_500k``
-needs a sub-quadratic token mixer and is a skip for pure full-attention
-archs.
+Each architecture is one module here holding ``CONFIG`` with the published
+dimensions: the dense-GQA Qwen3-1.7B, ChatGLM3-6B and Qwen2-72B, the MLA
+MiniCPM3-4B, the MoE DeepSeekMoE-16B and Granite-MoE-1B, the attention-free
+RWKV6-3B, the encoder-decoder Whisper-small, the VLM InternVL2-1B (their
+frontends stubs, as in the JAX package) and the hybrid Jamba-1.5-Large
+(attention, Mamba and MoE blocks): every architecture of the JAX package,
+so ``PORTED_ARCHS`` is ``ARCHS``. ``long_500k`` needs a sub-quadratic token
+mixer and is a skip for pure full-attention archs.
 """
 
 from __future__ import annotations
@@ -28,17 +27,7 @@ ARCHS = (
     "whisper-small",
     "rwkv6-3b",
 )
-PORTED_ARCHS = (
-    "qwen3-1.7b",
-    "chatglm3-6b",
-    "minicpm3-4b",
-    "qwen2-72b",
-    "deepseek-moe-16b",
-    "granite-moe-1b-a400m",
-    "internvl2-1b",
-    "whisper-small",
-    "rwkv6-3b",
-)
+PORTED_ARCHS = ARCHS  # every architecture runs in the port
 
 
 @dataclass(frozen=True)
@@ -60,12 +49,6 @@ SHAPES = {
 def get_config(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
-    if name not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{name} is not ported yet: Mamba blocks come with a later "
-            "slice of the port; ported so far: "
-            f"{PORTED_ARCHS}"
-        )
     mod = importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_")
     )
@@ -74,7 +57,7 @@ def get_config(name: str):
 
 def arch_shape_cells(archs=PORTED_ARCHS):
     """The (arch, shape, skip reason or None) cells of ``archs`` (default:
-    the ported architectures, the only ones :func:`get_config` knows)."""
+    all of them, the JAX package's grid)."""
     cells = []
     for a in archs:
         cfg = get_config(a)

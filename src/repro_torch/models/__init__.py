@@ -1,6 +1,6 @@
 """Model definitions of the port (counterpart of :mod:`repro.models`): the
 dense-GQA (with qk-norm, QKV-bias and half-RoPE variants), MLA, MoE (with
-shared experts) and RWKV6 blocks, the encoder and cross-attention of an
+shared experts), Mamba and RWKV6 blocks, the encoder and cross-attention of an
 encoder-decoder arch and a VLM's prefix embeddings, as plain functions
 over dicts of tensors, with prefill attention and the RWKV6 recurrence on
 hand-written Hopper kernels; the decode KV cache in the compute dtype or

@@ -1,6 +1,5 @@
 """Model configuration covering every architecture family in the pool
-(a copy of :mod:`repro.models.config`; the port runs every block but
-``mamba`` so far)."""
+(a copy of :mod:`repro.models.config`; the port runs every block kind)."""
 
 from __future__ import annotations
 

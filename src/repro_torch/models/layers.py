@@ -1,4 +1,4 @@
-"""The layers of the dense-GQA, MLA, MoE and RWKV6 families, as plain
+"""The layers of the dense-GQA, MLA, MoE, Mamba and RWKV6 families, as plain
 functions over dicts of tensors (counterpart of :mod:`repro.models.layers`).
 
 Conventions, as in the JAX package: activations ``x`` are (B, S, D) in the
@@ -6,13 +6,12 @@ compute dtype; norms and softmaxes run in float32; decode takes and returns
 explicit state. GQA attention and the RWKV6 recurrence go through
 :mod:`repro_torch.kernels.ops`, which launches the Hopper kernels on a CUDA
 tensor and their plain versions on a CPU tensor. MLA attends over its
-compressed cache in plain float32 and the MoE experts are batched matrix
-products: the JAX package calls no Pallas kernel for either. GQA decode
+compressed cache in plain float32, the MoE experts are batched matrix
+products and the Mamba selective scan runs in chunks over the sequence in
+plain float32: the JAX package calls no Pallas kernel for any of them. GQA decode
 keeps its cache in the compute dtype or, with ``kv_cache_dtype ==
 "int8"``, as int8 values with a bfloat16 scale a (position, KV head)
 (:func:`quantize_kv`).
-
-Not ported yet (a later slice): Mamba.
 """
 
 from __future__ import annotations
@@ -438,6 +437,129 @@ def moe_apply(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     me = probs[0].mean(0)
     ce = (F.one_hot(picks[0], E).sum(1) > 0).float().mean(0)
     return out, E * torch.sum(me * ce)
+
+
+# --------------------------------------------------------------------- Mamba
+# Positions of one chunk of the full-sequence scan. At Jamba-1.5-Large's
+# serving shape (B 4, d_inner 16,384, d_state 16) one chunk's float32
+# (B, L, d_inner, d_state) array is 4 * 128 * 16,384 * 16 * 4 = 537 MB,
+# against 8.59 GB for the whole 2,048-token sequence.
+MAMBA_CHUNK = 128
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    """The rank of the Mamba block's dt projection (the JAX ``_dt_rank``)."""
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def mamba_init(cfg: ModelConfig, generator, device):
+    """A Mamba-1 block's parameters (the JAX ``g_mamba_init`` of one layer):
+    ``A_log`` = log(1 .. d_state) on every channel and ``Dskip`` = 1, both
+    float32 whatever ``param_dtype`` is; the biases zero."""
+    D, DI, DS = cfg.d_model, cfg.d_inner, cfg.mamba_d_state
+    R = dt_rank(cfg)
+    dt = param_dtype(cfg)
+    A = torch.arange(1, DS + 1, dtype=torch.float32, device=device)[None, :].expand(DI, DS)
+    return {
+        "in_proj": dense_init((D, 2 * DI), dt, 0, generator, device),
+        "conv_w": dense_init((cfg.mamba_d_conv, DI), dt, 0, generator, device),
+        "conv_b": torch.zeros((DI,), dtype=dt, device=device),
+        "x_proj": dense_init((DI, R + 2 * DS), dt, 0, generator, device),
+        "dt_proj": dense_init((R, DI), dt, 0, generator, device),
+        "dt_bias": torch.zeros((DI,), dtype=dt, device=device),
+        "A_log": torch.log(A).contiguous(),
+        "Dskip": torch.ones((DI,), dtype=torch.float32, device=device),
+        "out_proj": dense_init((DI, D), dt, 0, generator, device),
+    }
+
+
+def _mamba_conv(p, xs, cfg: ModelConfig, conv_state=None):
+    """The depthwise causal convolution over S of xs (B, S, DI), after the
+    ``d_conv - 1`` inputs of ``conv_state`` (zeros when None), in the
+    compute dtype with the JAX ``_mamba_conv_scan``'s order of terms.
+    Returns (y, the last ``d_conv - 1`` inputs: the new conv state)."""
+    K = cfg.mamba_d_conv
+    B, S, DI = xs.shape
+    pad = (xs.new_zeros((B, K - 1, DI)) if conv_state is None
+           else conv_state.to(xs.dtype))
+    xp = torch.cat([pad, xs], dim=1)  # (B, S + K - 1, DI)
+    w = p["conv_w"]
+    y = xp[:, :S] * w[0]
+    for k in range(1, K):
+        y = y + xp[:, k:k + S] * w[k]
+    return y + p["conv_b"], xp[:, S:]
+
+
+def _mamba_scan(dt, dtx, Bm, Cm, A, chunk: int):
+    """``h_t = exp(dt_t A) h_{t-1} + dtx_t B_t`` from h = 0 over S, and
+    ``y_t = h_t . C_t``, in chunks of ``chunk`` positions: only one
+    chunk's decays, drives and states (B, L, DI, DS) exist at a time, and
+    h carries from chunk to chunk. dt, dtx (B, S, DI), Bm, Cm (B, S, DS)
+    and A (DI, DS), all float32. Returns (y (B, S, DI), the last h (B,
+    DI, DS)). No tensor is written in place, so autograd can run through
+    it."""
+    B, S, DI = dt.shape
+    h = dt.new_zeros((B, DI, A.shape[-1]))
+    ys = []
+    for c0 in range(0, S, chunk):
+        c1 = min(S, c0 + chunk)
+        decay = torch.exp(dt[:, c0:c1, :, None] * A)
+        drive = dtx[:, c0:c1, :, None] * Bm[:, c0:c1, None, :]
+        hs = []
+        for t in range(c1 - c0):
+            h = torch.addcmul(drive[:, t], decay[:, t], h)
+            hs.append(h)
+        ys.append(torch.einsum("bled,bld->ble", torch.stack(hs, dim=1), Cm[:, c0:c1]))
+        del decay, drive, hs
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_apply(p, x, cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
+    """The selective SSM (Mamba-1) over x (B, S, D), as the JAX
+    ``mamba_apply`` computes it: ``dt`` is the softplus in the compute
+    dtype, then float32; B, C, the decays, drives and states are float32;
+    y returns to x's dtype before ``out_proj``.
+
+    ``state`` = (conv state (B, d_conv - 1, DI), SSM state (B, DI, DS)
+    float32) for a decode step (S == 1): ``h = ssm[:, None] * decay +
+    drive``, the JAX line. With ``state=None`` the whole sequence is
+    scanned from zeros in chunks of ``chunk`` positions (default
+    ``MAMBA_CHUNK`` = 128: one chunk's float32 (B, L, DI, DS) array is 537
+    MB at Jamba-1.5-Large's serving shape, B 4, DI 16,384, DS 16); nothing
+    of shape (B, S, DI, DS) is allocated. The JAX function runs
+    ``jax.lax.associative_scan`` over the whole sequence instead: the same
+    recurrence, summed in another order.
+
+    Returns (out (B, S, D), (conv state, SSM state)): after S positions,
+    the last ``d_conv - 1`` inputs of the convolution (zero-padded when S
+    is shorter, as the decode steps' state is) and the last h; a decode
+    step's new state, or, for a full sequence, the state S decode steps
+    from zeros would leave (the one-forward fill)."""
+    B, S, D = x.shape
+    DI, DS = cfg.d_inner, cfg.mamba_d_state
+    R = dt_rank(cfg)
+    xz = x @ p["in_proj"]
+    xs, z = xz[..., :DI], xz[..., DI:]
+    xs, new_conv = _mamba_conv(p, xs, cfg, None if state is None else state[0])
+    xs = F.silu(xs)
+    proj = xs @ p["x_proj"]
+    dt = F.softplus(proj[..., :R] @ p["dt_proj"] + p["dt_bias"]).float()  # (B, S, DI)
+    Bm = proj[..., R:R + DS].float()  # (B, S, DS)
+    Cm = proj[..., R + DS:].float()
+    A = -torch.exp(p["A_log"])  # (DI, DS)
+    xf = xs.float()
+    dtx = dt * xf
+    if state is None:
+        y, h = _mamba_scan(dt, dtx, Bm, Cm, A, chunk)
+    else:
+        decay = torch.exp(dt[..., None] * A)
+        drive = dtx[..., None] * Bm[:, :, None, :]
+        hs = state[1][:, None] * decay + drive  # S == 1
+        y = torch.einsum("bsed,bsd->bse", hs, Cm)
+        h = hs[:, -1]
+    y = y + xf * p["Dskip"]
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], (new_conv, h)
 
 
 # --------------------------------------------------------------------- RWKV6

@@ -1,7 +1,9 @@
 """Model assembly: embedding -> blocks -> head (counterpart of
 :mod:`repro.models.transformer`), for the ``attn`` blocks (GQA or MLA
 attention, then an MLP or, on the layers ``moe_every`` / ``moe_offset``
-pick, an MoE) and the ``rwkv`` blocks (time mix + channel mix), with an
+pick, an MoE), the ``mamba`` blocks (the selective SSM, then an MLP or an
+MoE likewise: Jamba's group is one ``attn`` and seven ``mamba`` blocks)
+and the ``rwkv`` blocks (time mix + channel mix), with an
 encoder and cross-attention for an encoder-decoder arch (Whisper: frames
 in, ``frames``) and a prefix of patch embeddings for a VLM (InternVL2:
 ``extra_embeds``); the frontends that would make those embeddings are
@@ -32,11 +34,14 @@ updated in place.
   :func:`init_decode_state` (with ``kv_cache_dtype == "int8"`` the GQA
   caches hold int8 values and bfloat16 scales ``b{i}_ks`` / ``b{i}_vs``;
   an encoder arch's ``b{i}_xk`` / ``b{i}_xv`` hold the cross keys and
-  values).
+  values; a Mamba block's ``b{i}_conv`` / ``b{i}_ssm`` its last conv
+  inputs and its SSM state).
 * :func:`prefill` -- fills the decode state from a prompt by one
   ``forward`` that writes each block's keys and values (MLA: the
   compressed ``c_kv`` and ``k_rope``), last mix inputs and final WKV
-  state, and returns the last position's logits. The JAX ``prefill`` runs
+  state, each Mamba block's last conv inputs and final SSM state (its scan
+  runs in chunks over the sequence, ``layers.MAMBA_CHUNK``), and returns
+  the last position's logits. The JAX ``prefill`` runs
   a full ``forward``, throws its logits away and fills the state by a scan
   of decode steps; :func:`prefill_stepwise` is that loop, kept as the
   oracle. A decode step's MoE routes B tokens with the capacity of B
@@ -61,8 +66,6 @@ updated in place.
 
 :func:`decode_step`, :func:`prefill` and the serve fns run under
 ``torch.inference_mode``.
-
-Not ported yet (a later slice): Mamba; it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -82,12 +85,16 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
+BLOCK_KINDS = ("attn", "mamba", "rwkv")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    Mamba blocks."""
-    if any(kind not in ("attn", "rwkv") for kind in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba blocks come with a later slice of the port")
+    """Raise ``ValueError`` for a block kind the model does not know (the
+    JAX ``_mixer_init`` raises it at init); every kind of the JAX package
+    runs."""
+    unknown = [kind for kind in cfg.block_pattern if kind not in BLOCK_KINDS]
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {unknown}; known: {BLOCK_KINDS}")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -115,6 +122,8 @@ def _mixer_init(cfg: ModelConfig, generator, dev, kind: str):
         if cfg.attn_type == "mla":
             return L.mla_init(cfg, generator, dev)
         return L.attn_init(cfg, generator, dev)
+    if kind == "mamba":
+        return L.mamba_init(cfg, generator, dev)
     return L.rwkv_init(cfg, generator, dev)
 
 
@@ -139,17 +148,18 @@ def param_shapes(cfg: ModelConfig):
 
 def _layer_init(cfg: ModelConfig, generator, dev, kind: str, pos: int, cross: bool):
     """One layer's parameters: ``ln1``, ``mix``, ``ln2``, ``ffn`` (not for
-    RWKV) and, for a decoder ``attn`` layer of an encoder arch, the
+    RWKV, whose channel mix is in ``mix``) and, for a decoder ``attn``
+    layer of an encoder arch, the
     cross-attention's ``lnx`` and ``xattn`` (the JAX ``b{i}_lnx`` /
     ``b{i}_xattn``)."""
     lp = {"ln1": L.norm_init(cfg, cfg.d_model, dev),
           "ln2": L.norm_init(cfg, cfg.d_model, dev),
           "mix": _mixer_init(cfg, generator, dev, kind)}
-    if kind == "attn":
+    if kind != "rwkv":
         lp["ffn"] = _ffn_init(cfg, generator, dev, pos)
-        if cross:
-            lp["lnx"] = L.norm_init(cfg, cfg.d_model, dev)
-            lp["xattn"] = L.attn_init(cfg, generator, dev)
+    if kind == "attn" and cross:
+        lp["lnx"] = L.norm_init(cfg, cfg.d_model, dev)
+        lp["xattn"] = L.attn_init(cfg, generator, dev)
     return lp
 
 
@@ -329,7 +339,22 @@ def _block(x, kind, lp, cfg: ModelConfig, rope, state=None, g=0, i=0, cross=None
     and routes an MoE FFN position by position, as they do. ``cross``:
     the group's cross-attention keys and values, for an encoder arch."""
     h = L.norm_apply(lp["ln1"], x, cfg)
-    if kind == "attn":
+    if kind == "rwkv":
+        t, (tm_x, wkv) = L.rwkv_time_mix(lp["mix"], h, cfg)
+        x = x + t
+        c, cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg), cfg)
+        if state is not None:
+            state[f"b{i}_tm_x"][g] = tm_x
+            state[f"b{i}_wkv"][g] = wkv
+            state[f"b{i}_cm_x"][g] = cm_x
+        return x + c, None
+    if kind == "mamba":
+        m, (conv, ssm) = L.mamba_apply(lp["mix"], h, cfg)
+        if state is not None:
+            state[f"b{i}_conv"][g] = conv
+            state[f"b{i}_ssm"][g] = ssm
+        x = x + m
+    else:
         S = x.shape[1]
         if cfg.attn_type == "mla":
             a, (ckv, krope) = L.mla_apply(lp["mix"], h, cfg, rope)
@@ -349,17 +374,9 @@ def _block(x, kind, lp, cfg: ModelConfig, rope, state=None, g=0, i=0, cross=None
         if cross is not None:
             x = x + L.cross_attn_apply(lp["xattn"], L.norm_apply(lp["lnx"], x, cfg),
                                        *cross, cfg)
-        f, aux = _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg, i,
-                      per_position=state is not None)
-        return x + f, aux
-    t, (tm_x, wkv) = L.rwkv_time_mix(lp["mix"], h, cfg)
-    x = x + t
-    c, cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg), cfg)
-    if state is not None:
-        state[f"b{i}_tm_x"][g] = tm_x
-        state[f"b{i}_wkv"][g] = wkv
-        state[f"b{i}_cm_x"][g] = cm_x
-    return x + c, None
+    f, aux = _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg, i,
+                  per_position=state is not None)
+    return x + f, aux
 
 
 def _group(x, layers, cfg: ModelConfig, rope, state=None, g=0, cross=None):
@@ -381,7 +398,8 @@ def _forward(params, cfg: ModelConfig, tokens, state=None, remat: str = "none",
     the decode steps would leave there after the P + S positions: the keys
     and values (MLA: ``c_kv`` and ``k_rope``; int8: quantized with their
     scales) at positions 0 .. P+S-1, the time and channel mixes' last
-    inputs and the final WKV state, and, for an encoder arch, the cross
+    inputs and the final WKV state, a Mamba block's last conv inputs and
+    final SSM state, and, for an encoder arch, the cross
     keys and values of ``frames``; its MoE layers then route position by
     position (the aux loss is then 0), and with an int8 cache its
     attention reads the keys and values quantized, as the decode steps
@@ -420,7 +438,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     with ``kv_cache_dtype == "int8"``, beside their bfloat16 scales
     ``b{i}_ks`` / ``b{i}_vs`` (G, B, max_len, KV, 1)), ``b{i}_ckv`` (G, B,
     max_len, kv_lora_rank) and ``b{i}_krope`` (G, B, max_len, qk_rope_dim)
-    for MLA blocks, ``b{i}_tm_x`` / ``b{i}_cm_x`` (G, B, 1, D) and
+    for MLA blocks, ``b{i}_conv`` (G, B, d_conv - 1, d_inner) in the
+    compute dtype and ``b{i}_ssm`` (G, B, d_inner, d_state) float32 for
+    Mamba blocks, ``b{i}_tm_x`` / ``b{i}_cm_x`` (G, B, 1, D) and
     ``b{i}_wkv`` (G, B, H, hd, hd) float32 for RWKV blocks; an encoder
     arch's ``attn`` blocks also get the cross keys and values ``b{i}_xk``
     / ``b{i}_xv`` (G, B, enc_len, KV, hd)."""
@@ -444,6 +464,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             if cfg.kv_cache_dtype == "int8":
                 zeros(f"b{i}_ks", shape[:-1] + (1,), torch.bfloat16)
                 zeros(f"b{i}_vs", shape[:-1] + (1,), torch.bfloat16)
+        elif kind == "mamba":
+            zeros(f"b{i}_conv", (G, batch, cfg.mamba_d_conv - 1, cfg.d_inner))
+            zeros(f"b{i}_ssm", (G, batch, cfg.d_inner, cfg.mamba_d_state), torch.float32)
         else:
             H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
             zeros(f"b{i}_tm_x", (G, batch, 1, cfg.d_model))
@@ -473,7 +496,25 @@ def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
         for layer, (kind, lp) in enumerate(zip(layer_kinds(cfg), params["layers"])):
             g, i = divmod(layer, cfg.group_size)
             h = L.norm_apply(lp["ln1"], x, cfg)
-            if kind == "attn":
+            if kind == "rwkv":
+                tm_x, wkv, cm_x = (state[f"b{i}_{n}"][g] for n in ("tm_x", "wkv", "cm_x"))
+                t, (new_tm_x, new_wkv) = L.rwkv_time_mix(lp["mix"], h, cfg,
+                                                         state=(tm_x, wkv))
+                tm_x.copy_(new_tm_x)
+                wkv.copy_(new_wkv)
+                x = x + t
+                c, new_cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg),
+                                                 cfg, prev=cm_x)
+                cm_x.copy_(new_cm_x)
+                x = x + c
+                continue
+            if kind == "mamba":
+                conv, ssm = state[f"b{i}_conv"][g], state[f"b{i}_ssm"][g]
+                m, (new_conv, new_ssm) = L.mamba_apply(lp["mix"], h, cfg, state=(conv, ssm))
+                conv.copy_(new_conv)
+                ssm.copy_(new_ssm)
+                x = x + m
+            else:
                 if cfg.attn_type == "mla":
                     x = x + L.mla_decode(lp["mix"], h, cfg, state[f"b{i}_ckv"][g],
                                          state[f"b{i}_krope"][g], cur_len, rope)
@@ -486,18 +527,7 @@ def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
                     x = x + L.cross_attn_apply(
                         lp["xattn"], L.norm_apply(lp["lnx"], x, cfg),
                         state[f"b{i}_xk"][g], state[f"b{i}_xv"][g], cfg)
-                x = x + _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg, i)[0]
-            else:
-                tm_x, wkv, cm_x = (state[f"b{i}_{n}"][g] for n in ("tm_x", "wkv", "cm_x"))
-                t, (new_tm_x, new_wkv) = L.rwkv_time_mix(lp["mix"], h, cfg,
-                                                         state=(tm_x, wkv))
-                tm_x.copy_(new_tm_x)
-                wkv.copy_(new_wkv)
-                x = x + t
-                c, new_cm_x = L.rwkv_channel_mix(lp["mix"], L.norm_apply(lp["ln2"], x, cfg),
-                                                 cfg, prev=cm_x)
-                cm_x.copy_(new_cm_x)
-                x = x + c
+            x = x + _ffn(lp, L.norm_apply(lp["ln2"], x, cfg), cfg, i)[0]
         logits = _head(params, cfg, x)
     return logits, state
 

@@ -877,3 +877,103 @@ def test_moe_layer_on_the_card_equals_the_cpu(cuda, name):
         want, aux_cpu = L.moe_apply(p, x, cfg, per_position=per_position)
         assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
         assert torch.allclose(aux.cpu(), aux_cpu, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ Mamba and Jamba
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_on_the_card_in_chunks(cuda, dtype):
+    """mamba_apply over a 1,000-token sequence at Jamba's d_state (16) and a
+    narrower d_inner (2,048): chunks of 128 (the default; the last one
+    ragged) against one chunk of the whole sequence on the card and against
+    the CPU, within 1e-4 (float32) or 2e-2 (bfloat16) of the output's
+    scale; the returned conv and SSM states too. The chunked run's peak
+    memory above its inputs stays below one (B, S, d_inner, d_state)
+    float32 array."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    dt = str(dtype).removeprefix("torch.")
+    cfg = replace(get_config("jamba-1.5-large-398b"), d_model=1024, param_dtype=dt,
+                  compute_dtype=dt)
+    p = L.mamba_init(cfg, torch.Generator().manual_seed(44), "cpu")
+    x = torch.randn((2, 1000, cfg.d_model), generator=torch.Generator().manual_seed(45)).to(dtype)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    xc = x.to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, (conv, ssm) = L.mamba_apply(pc, xc, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    whole = 2 * 1000 * cfg.d_inner * cfg.mamba_d_state * 4
+    assert peak < whole, (peak, whole)
+    one, (conv1, ssm1) = L.mamba_apply(pc, xc, cfg, chunk=1000)
+    cpu, (conv_cpu, ssm_cpu) = L.mamba_apply(p, x, cfg)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in ((got, one), (got, cpu), (conv, conv1), (conv, conv_cpu), (ssm, ssm1),
+                 (ssm, ssm_cpu)):
+        a, b = a.float().cpu(), b.float().cpu()
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol * scale
+
+
+def _jamba_lane_cfg():
+    """Jamba's lane: the (attn, mamba) pair of blocks with 4 experts on the
+    Mamba block, at .scaled() width, float32."""
+    from repro_torch.configs import get_config
+
+    return get_config("jamba-1.5-large-398b").scaled(
+        num_layers=2, block_pattern=("attn", "mamba"), param_dtype="float32",
+        compute_dtype="float32")
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_jamba_two_layer_lane_on_the_card_equals_the_cpu(cuda):
+    """The forward, the one-forward fill and 4 decode steps of the
+    two-layer Jamba lane on the card against the CPU, within 1e-4, the MoE
+    routing (every pick, slot and kept mask) equal on both."""
+    from repro_torch import models as pm
+    from repro_torch.models import layers as L
+
+    cfg = _jamba_lane_cfg()
+    params = pm.init_model(cfg, generator=torch.Generator().manual_seed(46), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(47))
+    out = {}
+    route = L.moe_route
+    for lane, dev in (("cpu", torch.device("cpu")), ("cuda", cuda)):
+        seen = []
+
+        def recording(logits, K, C):
+            r = route(logits, K, C)
+            seen.append(tuple(t.cpu() for t in r[2:]))
+            return r
+
+        p = _tree_to(params, dev)
+        L.moe_route = recording
+        try:
+            logits, _ = pm.forward(p, cfg, toks.to(dev))
+            st = pm.init_decode_state(cfg, 2, 48, device=dev)
+            last, st = pm.prefill(p, cfg, toks.to(dev), st)
+            steps = []
+            for t in range(4):
+                lg, st = pm.decode_step(p, cfg, st, toks[:, t:t + 1].to(dev), 40 + t)
+                steps.append(lg.cpu())
+        finally:
+            L.moe_route = route
+        out[lane] = (logits.cpu(), last.cpu(), steps, {k: v.cpu() for k, v in st.items()}, seen)
+    (lc, pc, sc, stc, rc), (lg, pg, sg, stg, rg) = out["cpu"], out["cuda"]
+    close = dict(rtol=1e-4, atol=1e-4)
+    assert torch.allclose(lc, lg, **close) and torch.allclose(pc, pg, **close)
+    assert all(torch.allclose(a, b, **close) for a, b in zip(sc, sg))
+    assert all(torch.allclose(stc[k], stg[k], **close) for k in stc)
+    assert len(rc) == len(rg) == 6
+    assert all(torch.equal(x, y) for a, b in zip(rc, rg) for x, y in zip(a, b))

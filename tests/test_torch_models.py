@@ -92,21 +92,47 @@ def test_registry_matches_on_the_ported_archs():
     assert configs.arch_shape_cells() == want
 
 
-@pytest.mark.parametrize("name", [a for a in jconfigs.ARCHS if a not in configs.PORTED_ARCHS])
-def test_other_archs_wait_for_a_later_slice(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        configs.get_config(name)
+def test_every_arch_of_the_jax_package_is_ported():
+    """``PORTED_ARCHS`` is the JAX ``ARCHS``: ``get_config`` raises for no
+    architecture, and the grid is the JAX package's 40 cells."""
+    assert configs.PORTED_ARCHS == jconfigs.ARCHS
+    for name in jconfigs.ARCHS:
+        assert asdict(configs.get_config(name)) == asdict(jconfigs.get_config(name))
+    assert configs.arch_shape_cells() == jconfigs.arch_shape_cells()
+    assert len(configs.arch_shape_cells()) == 40
 
 
 @pytest.mark.parametrize("overrides", [
     dict(block_pattern=("attn", "mamba")), dict(block_pattern=("mamba",)),
     dict(block_pattern=("mamba", "attn"), kv_cache_dtype="int8"),
 ])
-def test_unported_blocks_raise(overrides):
-    cfg = ModelConfig(name="x", family="dense", num_layers=2, d_model=64, num_heads=4,
-                      num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256, **overrides)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pm.init_model(cfg, generator=torch.Generator(), device="cpu")
+def test_mamba_layouts_match_jax(overrides):
+    """Two-layer models of Mamba blocks alone and beside attention (one
+    with the int8 KV cache) in float32, the JAX parameters carried across:
+    the forward's logits, then 4 decode steps' logits and the decode state
+    (the int8 values exactly) against the JAX package."""
+    fields = dict(name="x", family="dense", num_layers=2, d_model=64, num_heads=4,
+                  num_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256, **F32, **overrides)
+    jcfg, pcfg = jm.ModelConfig(**fields), ModelConfig(**fields)
+    jp = jm.init_model(jax.random.key(0), jcfg)
+    pp = convert.model_params_from_jax(jax.tree.map(np.asarray, jp), pcfg)
+    assert "ffn" in pp["layers"][0] and "A_log" in pp["layers"][
+        jcfg.block_pattern.index("mamba")]["mix"]
+    toks = _tokens(jcfg)
+    jlog, _ = jm.forward(jp, jcfg, jnp.asarray(toks))
+    plog, _ = pm.forward(pp, pcfg, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(_np(plog), _np(jlog), **TIGHT)
+    js = jm.init_decode_state(jcfg, B, MAX_LEN)
+    ps = pm.init_decode_state(pcfg, B, MAX_LEN, device="cpu")
+    for t in range(4):
+        jl_, js = jm.decode_step(jp, jcfg, js, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+        pl, ps = pm.decode_step(pp, pcfg, ps, torch.from_numpy(toks[:, t:t + 1]).long(), t)
+        np.testing.assert_allclose(_np(pl), _np(jl_), **TIGHT)
+    for key in js:
+        if ps[key].dtype == torch.int8:
+            np.testing.assert_array_equal(ps[key].numpy(), np.asarray(js[key]), key)
+        else:
+            np.testing.assert_allclose(_np(ps[key]), _np(js[key]), **TIGHT, err_msg=key)
 
 
 # ------------------------------------------------------------------- params

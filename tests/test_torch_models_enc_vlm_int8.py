@@ -152,12 +152,15 @@ def test_published_configs():
         24, 896, 14, 2, 64, "vision_stub", 256, True, True)
 
 
-def test_jamba_still_raises_naming_mamba():
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        configs.get_config("jamba-1.5-large-398b")
-    cfg = ModelConfig(**asdict(jconfigs.get_config("jamba-1.5-large-398b")))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        pt.check_supported(cfg)
+def test_jamba_config_is_the_jax_one_and_supported():
+    """Jamba's config equals the JAX one field by field, and its blocks
+    (attention, Mamba, MoE) pass ``check_supported``."""
+    got = configs.get_config("jamba-1.5-large-398b")
+    want = jconfigs.get_config("jamba-1.5-large-398b")
+    for field, value in asdict(want).items():
+        assert getattr(got, field) == value, field
+    pt.check_supported(got)
+    pt.check_supported(ModelConfig(**asdict(want)))
 
 
 @pytest.mark.parametrize("overrides", [
