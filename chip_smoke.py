@@ -92,13 +92,14 @@ Phases, each of which must pass (any failure exits non-zero):
     package's ``benchmarks/fig3_7_tuning.py`` and ``benchmarks/common.py::
     build_bench_db``, through ``repro_torch.sim.api.run``,
     ``build_database`` and ``repro_torch.sim.workloads.WORKLOADS``): the
-    seven workloads at their default sizes generated in parallel processes,
-    the 196-record database harvested from them, TPP vs TPP+Tuna at
-    tau = 5% on bfs, sssp, pagerank, xsbench and btree, the thrash row and
-    the knee block (tpp, admission, thrash_guard at full size and tuned
-    from half), with the ``victim_partition`` count set to 0 just before
-    and read just after; every one of those runs again on the CPU, bit
-    for bit; the guard must suppress candidates; then TPP vs TPP+Tuna on
+    seven workloads at their default sizes generated in spawned processes
+    at the lowest CPU priority from the script's start, the 196-record
+    database harvested from them, TPP vs TPP+Tuna at tau = 5% on bfs,
+    sssp, pagerank, xsbench and btree, the thrash row and the knee block
+    (tpp, admission, thrash_guard at full size and tuned from half), with
+    the ``victim_partition`` count set to 0 just before and read just
+    after; every one of those runs again on the CPU, bit for bit; the
+    guard must suppress candidates; then TPP vs TPP+Tuna on
     ``btree_trace(levels=7)`` (1,607,817 pages), its largest
     ``victim_partition`` call held against the plain version. Per workload
     it prints pages, intervals, wall s, saving, loss, migrations and the
@@ -113,14 +114,15 @@ Phases, each of which must pass (any failure exits non-zero):
     the levels none, mild and harsh (seed 7), kinds tpp, admission and
     thrash_guard at full size and tuned (tau 5%), on the card and on the
     CPU, bit for bit (fault events included); then phase 4's trace under
-    harsh faults over the paper's 20 sizes with TPP+Tuna riding along; (b)
-    the balanced, skewed and noisy mixes (48 intervals, tenants of 12,000
-    pages, the noisy neighbour 8,000, budget 0.7 of the RSS, tau 0.2), the
-    full-budget reference, static and fleet_tuna, on the card and on the
-    CPU, bit for bit (the arbiter's log included), the noisy mix once more
-    under harsh faults; then the skewed mix at phase 4's RSS (3,250,584
-    pages) on the card; (c) ``MultiTenantKV`` (three tenants of 1,024, 512
-    and 512 Qwen3-1.7B KV pages, 3.76 GB pinned, an HBM budget of 512
+    harsh faults over every other of the paper's 20 sizes with TPP+Tuna
+    riding along; (b) the balanced, skewed and noisy mixes (48 intervals,
+    tenants of 12,000 pages, the noisy neighbour 8,000, budget 0.7 of the
+    RSS, tau 0.2), the full-budget reference, static and fleet_tuna, on the
+    card and on the CPU, bit for bit (the arbiter's log included), the
+    noisy mix once more under harsh faults; then the skewed mix at phase
+    4's RSS (3,250,584 pages, 24 intervals) on the card; (c)
+    ``MultiTenantKV`` (three tenants of 1,024, 512 and 512 Qwen3-1.7B KV
+    pages, 3.76 GB pinned, an HBM budget of 512
     slots) through 200 seeded rounds with a rebalance every 8, on the CPU
     and on the card at a narrow page, bit for bit, then at the full page
     with every page's content checked;
@@ -158,12 +160,13 @@ Phases, each of which must pass (any failure exits non-zero):
     whose ``_admit`` rejects everything, registered, on bfs at its
     defaults: both on the per-size engine (``simulate``), the second
     promoting nothing, the device step refusing both; a subclass that
-    overrides nothing on the device step, equal to TPP; (b) phase 10's
-    database rebuilt in 4 spawned processes, record for record equal to
-    phase 10's serial build (distinct worker pids, each worker's peak
-    memory on the card, serial against fan-out seconds); (c) phase 4's
-    profile experiment through the result cache twice: the first document
-    equal to phase 4's RunSet, the second call a hit that launches nothing;
+    overrides nothing on the device step, equal to TPP; (b) every 4th
+    record of phase 10's database rebuilt in 4 spawned processes, record
+    for record equal to phase 10's serial build (distinct worker pids, each
+    worker's peak memory on the card); (c) phase 4's tuned experiment
+    (TPP and TPP+Tuna over its database) through the result cache twice:
+    the first document equal to phase 4's RunSet, the second call a hit
+    that launches nothing;
     (d) ``RunSet.from_json(rs.to_json()) == rs`` for the RunSets of phases
     4, 10, 11 and 12 (the timing runner's payloads among them); (e) a
     trace factory that raises in a worker and a scenario that hangs past
@@ -279,20 +282,31 @@ MORE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m", "minicpm3-4b", "chatgl
 # Qwen2-72B at 8 of its 80 layers (all 80 take about 145 GB in bfloat16);
 # Jamba-1.5-Large at one 8-layer group (one attention and seven Mamba
 # blocks) of its 9, with 4 of its 16 experts (top-2 kept): 16.25 B
-# parameters, 32.5 GB (one group with all 16 experts is 90.5 GB)
+# parameters, 32.5 GB (one group with all 16 experts is 90.5 GB). And cuts
+# for the script's time (PERF.md §4): MiniCPM3-4B at 8 of its 62 layers
+# (its float32 MLA attention made its served run the longest of the
+# phase), DeepSeekMoE-16B at 8 of 28, Granite-MoE-1B at 8 of 24 and
+# ChatGLM3-6B at 8 of 28 (phase 14 trains Granite-MoE-1B and MiniCPM3-4B at
+# full depth)
 ARCH_OVERRIDES = {"qwen2-72b": {"num_layers": 8},
-                  "jamba-1.5-large-398b": {"num_layers": 8, "n_experts": 4}}
+                  "jamba-1.5-large-398b": {"num_layers": 8, "n_experts": 4},
+                  "minicpm3-4b": {"num_layers": 8}, "deepseek-moe-16b": {"num_layers": 8},
+                  "granite-moe-1b-a400m": {"num_layers": 8}, "chatglm3-6b": {"num_layers": 8}}
 # the archs whose CPU and CUDA lanes phase 15 compares at full width and
-# LANE_LAYERS layers: those without a frontend but Qwen2-72B (its two
-# layers and head are 17 GB of float32 CPU work; ChatGLM3-6B's lane covers
-# its QKV bias, and its CPU tests hold it against the JAX package)
+# LANE_LAYERS layers: all but Qwen2-72B (its two layers and head are 17 GB
+# of float32 CPU work; ChatGLM3-6B's lane covers its QKV bias, and its CPU
+# tests hold it against the JAX package); Whisper-small with its 1,500
+# frames, InternVL2-1B with its 256 patch embeddings
 LANE_ARCHS_15 = ("deepseek-moe-16b", "granite-moe-1b-a400m", "minicpm3-4b", "chatglm3-6b",
-                 "jamba-1.5-large-398b")
+                 "jamba-1.5-large-398b", "whisper-small", "internvl2-1b")
 # Jamba's lane: two layers of its pattern are not a whole group, so the
 # lane's group is an attention and a Mamba block (the Mamba block's FFN
-# MoE, 4 experts): 4.67 B parameters, 18.7 GB in float32
+# MoE, 4 experts): 4.67 B parameters, 18.7 GB in float32. Whisper's lane
+# cuts its encoder to the decoder's 2 (LANE_LAYERS) layers too. The
+# gradient checks of phase 14 take the same layouts.
 LANE_OVERRIDES = {"jamba-1.5-large-398b": {"block_pattern": ("attn", "mamba"),
-                                           "n_experts": 4}}
+                                           "n_experts": 4},
+                  "whisper-small": {"encoder_layers": 2}}
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS = 4, 2048, 32
 # Whisper's text context is 448 tokens: a 416-token prompt and 32 new ones
 PROMPT_LENS = {"whisper-small": 416}
@@ -336,6 +350,11 @@ LANE_LAYERS, LANE_BATCH, LANE_LEN, LANE_TOL = 2, 2, 64, 1e-3
 # CPU); an element whose gradient is rounding noise may take the other sign
 # of a first Adam step on the other lane, hence the update's L2 measure.
 TRAIN_LANE_TOL = 1e-3
+# the archs whose training step phase 3 also compares on both lanes (the
+# MoE, MLA, encoder-decoder and VLM families phase 14 trains; Jamba's and
+# DeepSeekMoE-16B's lanes stay forward-only: a float32 step of their lane
+# layouts on the host would take tens of GB)
+TRAIN_LANE_ARCHS = ("granite-moe-1b-a400m", "minicpm3-4b", "whisper-small", "internvl2-1b")
 # the backward kernels' __global__ names, which phase 14 finds in the
 # profiled training step (bfloat16: the tensor-core pair; wkv6_bwd's second
 # kernel adds du's batch rows)
@@ -349,6 +368,8 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    for pool in BACKGROUND:  # no trace generator outlives the script
+        pool.close()
     sys.exit(1)
 
 
@@ -394,6 +415,29 @@ def batched_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
+def _cuda_events(prof) -> list:
+    """(name, µs) of each device event of a finished profile, read from the
+    profiler's raw results: ``prof.events()`` first builds a FunctionEvent
+    tree over every host op as well, which takes seconds for a sweep or a
+    training step. The device time is the same: each event's duration,
+    asynchronous events left out and names demangled, as
+    ``FunctionEvent.device_time_total`` counts them."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    names: dict = {}
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != cuda or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        out.append((names[raw], (e.end_ns() - e.start_ns()) / 1e3))
+    return out
+
+
 def profiled_ms(fn, *kernels: str, calls: int = 20):
     """Device milliseconds of one call of ``fn`` spent in kernels whose name
     holds one of ``kernels`` (none named: all the call's device work), by
@@ -411,11 +455,10 @@ def profiled_ms(fn, *kernels: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    found = [e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (not kernels or any(k in e.name for k in kernels))]
-    us = sum(e.device_time_total for e in found)
-    n = sum(kernels[0] in e.name for e in found) if kernels else calls
+    found = [(name, us) for name, us in _cuda_events(prof)
+             if not kernels or any(k in name for k in kernels)]
+    us = sum(us for _, us in found)
+    n = sum(kernels[0] in name for name, _ in found) if kernels else calls
     if n != calls:
         log(f"   profiler: {n} launches of {kernels[0]} in the trace of {calls} calls")
     return us / 1e3 / n if n else None
@@ -651,10 +694,7 @@ def main_path(dev, capture: dict) -> dict:
         torch.cuda.synchronize()
     phases["sweep_s"] = time.perf_counter() - t
     # device time: every kernel and copy the profiler saw on the card
-    device_us = sum(
-        e.device_time_total for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    device_us = _device_us(prof)
     n_int = len(trace)
     split = {
         "intervals": n_int,
@@ -678,7 +718,7 @@ def main_path(dev, capture: dict) -> dict:
     phases["build_database_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    tuned = api.run(api.Experiment(
+    quickstart = api.Experiment(
         name="quickstart", scenarios=[api.Scenario(trace=trace)],
         fm_fracs=(1.0,),
         policies=[
@@ -686,13 +726,14 @@ def main_path(dev, capture: dict) -> dict:
             api.PolicySpec(label="tpp+tuna", tuner=api.TunerSpec(
                 target_loss=0.05, tune_every=3)),
         ],
-    ), db=db)
+    )
+    tuned = api.run(quickstart, db=db)
     torch.cuda.synchronize()
     phases["tuned_run_s"] = time.perf_counter() - t
     torch_engine.victim_partition = victim_partition
-    # phase 13 reruns the profile experiment through the cache and round
-    # trips both RunSets through JSON
-    capture.update(profile=profile, runsets=[sweep, tuned])
+    # phase 13 reruns the tuned experiment through the cache, round trips
+    # both RunSets through JSON and sweeps the profile's first interval
+    capture.update(profile=profile, quickstart=quickstart, db=db, runsets=[sweep, tuned])
 
     # --- the outputs are what the system promises
     for rs in (sweep, tuned):
@@ -1198,12 +1239,10 @@ def serving_full_width(dev, capture: dict) -> dict:
     server.batcher.round_batch = round_batch
     check(launches > 0, "the serving loop never launched migrate_pages")
 
-    device_us = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    traced = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "migrate_kernel" in e.name]
-    migrate_us = sum(e.device_time_total for e in traced)
+    events = _cuda_events(prof)
+    device_us = sum(us for _, us in events)
+    traced = [us for name, us in events if "migrate_kernel" in name]
+    migrate_us = sum(traced)
 
     # --- every page's content survived, in host memory and, for resident
     # pages, in its HBM slot
@@ -1627,9 +1666,11 @@ def flash_bwd_checks(dev) -> float:
     """flash_attention_bwd == autograd of flash_attention_plain on the card:
     per gradient the largest difference within 1e-4 (float32) or 1e-2
     (bfloat16) of the gradient's largest value, in both dtypes; causal and
-    not, T > S, GQA ratios 1, 2, 4 and 8, ragged tails at 1,000 and 2,047
-    tokens, S and T off the tiles with T > S and S > T, head sizes 16, 32,
-    64 and 128, rows that see no key (their gradients zeros); each dtype
+    not, T > S, GQA ratios 1, 2, 4, 7, 8 and 16, ragged tails at 1,000 and
+    2,047 tokens, S and T off the tiles with T > S and S > T, head sizes 16,
+    32, 64 and 128, rows that see no key (their gradients zeros), the head
+    layouts phase 14 trains (Whisper's 1,500 x 1,500 and 448 x 1,500
+    non-causal among them); each dtype
     runs its own pair of kernels (the library's launch count of each
     kernel: FMA for float32, tensor cores for bfloat16); then one call 10 times over, bit-identical
     each time. The bfloat16 kernels round P and dS to bfloat16 as the
@@ -1650,6 +1691,13 @@ def flash_bwd_checks(dev) -> float:
         (2, 48, 20, 4, 2, 64, True), (1, 40, 40, 4, 4, 128, False),
         (1, 300, 300, 16, 2, 128, True), (1, 77, 77, 16, 2, 16, True),
         (1, 130, 200, 4, 2, 32, True), (1, 150, 90, 4, 1, 32, True),
+        # the layouts phase 14 trains: Whisper-small's encoder and its
+        # cross-attention over the 448-token context, InternVL2-1B (GQA 7
+        # over 256 patches + 2,048 tokens), Granite-MoE-1B, ChatGLM3-6B
+        # (GQA 16), Qwen2-72B and Jamba-1.5-Large
+        (1, 1500, 1500, 12, 12, 64, False), (1, 448, 1500, 12, 12, 64, False),
+        (1, 2304, 2304, 14, 2, 64, True), (1, 512, 512, 16, 8, 64, True),
+        (1, 512, 512, 32, 2, 128, True), (1, 512, 512, 64, 8, 128, True),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, T, H, KV, hd, causal in cases:
@@ -1792,7 +1840,10 @@ def model_lanes_agree(dev, names=MODEL_FAMILIES, draw_on=None) -> dict:
     routing (every pick, slot and kept mask of the forward, the fill and
     the decode loop) must be equal on both lanes, first with its drawn
     router and then with zero routers, where every probability ties and
-    every token picks experts 0 .. K-1."""
+    every token picks experts 0 .. K-1. An encoder arch runs on its
+    frames and a VLM on its patch embeddings (``lane_inputs``); a VLM's
+    decode-loop oracle is held against the fill of the tokens alone, the
+    prompt the decode loop steps over."""
     from dataclasses import replace
 
     import torch
@@ -1817,21 +1868,31 @@ def model_lanes_agree(dev, names=MODEL_FAMILIES, draw_on=None) -> dict:
                                 device=where), "cpu")
         tokens = torch.randint(0, cfg.vocab_size, (LANE_BATCH, LANE_LEN),
                                generator=torch.Generator().manual_seed(24))
+        inputs = lane_inputs(cfg)
+        P = cfg.frontend_len if "extra_embeds" in inputs else 0
+        enc = cfg.frontend_len if "frames" in inputs else 0
         lanes, routes = {}, {}
         for lane, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
             p = params if lane == "cpu" else _to(params, device)
             t = tokens.to(device)
+            kw = {k: v.to(device) for k, v in inputs.items()}
+            frames = {k: v for k, v in kw.items() if k == "frames"}
             with recorded_routes() as routes[lane]:
-                logits, _ = forward(p, cfg, t)
-                state = init_decode_state(cfg, LANE_BATCH, 8, device=device)
-                last, state = prefill(p, cfg, t[:, :4], state)
+                logits, _ = forward(p, cfg, t, **kw)
+                state = init_decode_state(cfg, LANE_BATCH, P + 8, enc_len=enc, device=device)
+                last, state = prefill(p, cfg, t[:, :4], state, **kw)
+                tlast, tstate = last, state
+                if P:
+                    tlast, tstate = prefill(p, cfg, t[:, :4], init_decode_state(
+                        cfg, LANE_BATCH, 8, device=device))
                 olast, ostate = prefill_stepwise(
-                    p, cfg, t[:, :4], init_decode_state(cfg, LANE_BATCH, 8, device=device))
-            oracle = {"prefill_logits": float((last - olast).abs().max()),
-                      **{k: float((state[k] - ostate[k]).abs().max()) for k in state}}
-            check(torch.allclose(last, olast, rtol=LANE_TOL, atol=LANE_TOL) and all(
-                torch.allclose(state[k], ostate[k], rtol=LANE_TOL, atol=LANE_TOL)
-                for k in state),
+                    p, cfg, t[:, :4],
+                    init_decode_state(cfg, LANE_BATCH, 8, enc_len=enc, device=device), **frames)
+            oracle = {"prefill_logits": float((tlast - olast).abs().max()),
+                      **{k: float((tstate[k] - ostate[k]).abs().max()) for k in tstate}}
+            check(torch.allclose(tlast, olast, rtol=LANE_TOL, atol=LANE_TOL) and all(
+                torch.allclose(tstate[k], ostate[k], rtol=LANE_TOL, atol=LANE_TOL)
+                for k in tstate),
                 f"{name} ({lane}): prefill differs from the decode loop beyond "
                 f"{LANE_TOL}: {oracle}")
             lanes[lane] = (logits.cpu(), last.cpu(), {k: v.cpu() for k, v in state.items()},
@@ -1861,6 +1922,15 @@ def model_lanes_agree(dev, names=MODEL_FAMILIES, draw_on=None) -> dict:
     return out
 
 
+def lane_inputs(cfg) -> dict:
+    """A lane's frontend input, on the CPU in the compute dtype from a
+    seed: ``frontend_inputs`` of LANE_BATCH rows ({} for a text-only
+    arch)."""
+    import torch
+
+    return frontend_inputs(cfg, torch.Generator().manual_seed(27), "cpu", LANE_BATCH)
+
+
 def zero_router_lanes(params, cfg, tokens, dev) -> dict:
     """The forward on both lanes with every router zeroed: every token
     picks experts 0 .. K-1 on both, the same picks kept, and the logits
@@ -1888,9 +1958,11 @@ def zero_router_lanes(params, cfg, tokens, dev) -> dict:
 
 
 def train_lanes_agree(dev) -> dict:
-    """One training step of each family at full width and LANE_LAYERS
-    layers, in float32, the same weights (drawn on the CPU from a seed) and
-    batch on the CPU and on the card (``make_train_fns``' step: loss,
+    """One training step of each arch of MODEL_FAMILIES and
+    TRAIN_LANE_ARCHS at full width and LANE_LAYERS layers (LANE_OVERRIDES),
+    in float32, the same weights (drawn on the CPU from a seed) and batch
+    (with an encoder arch's frames or a VLM's patches, ``lane_inputs``) on
+    the CPU and on the card (``make_train_fns``' step: loss,
     gradients through the backward kernels on the card and autograd of the
     plain versions on the CPU, clip, AdamW). The loss and the gradients'
     global norm within TRAIN_LANE_TOL (relative); the step's update
@@ -1904,27 +1976,32 @@ def train_lanes_agree(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch.train import make_train_fns
-    from repro_torch.optim.adamw import from_leaves, leaves
+    from repro_torch.optim.adamw import from_leaves, leaves, tree_map
 
     out = {}
-    for name in MODEL_FAMILIES:
+    for name in MODEL_FAMILIES + TRAIN_LANE_ARCHS:
         cfg = replace(get_config(name), num_layers=LANE_LAYERS,
-                      param_dtype="float32", compute_dtype="float32")
+                      param_dtype="float32", compute_dtype="float32",
+                      **LANE_OVERRIDES.get(name, {}))
         batch = SyntheticLMDataset(cfg.vocab_size, LANE_LEN, LANE_BATCH, seed=25).batch_at(0)
+        for k, v in lane_inputs(cfg).items():
+            batch["patches" if k == "extra_embeds" else k] = v
+        t = time.perf_counter()
+        params, state = make_train_fns(cfg, device="cpu")["init"](
+            torch.Generator().manual_seed(26))
+        on_card = (from_leaves(state["m"], [p.detach().to(dev, copy=True).requires_grad_(True)
+                                            for p in leaves(params)]),
+                   tree_map(lambda t: t.to(dev, copy=True), state))
         lanes = {}
-        for lane, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        for lane, device, (params, state) in (("cpu", torch.device("cpu"), (params, state)),
+                                              ("cuda", dev, on_card)):
             fns = make_train_fns(cfg, remat="none", device=device)
-            params, state = make_train_fns(cfg, device="cpu")["init"](
-                torch.Generator().manual_seed(26))
-            if lane == "cuda":
-                params = [p.detach().to(dev).requires_grad_(True) for p in leaves(params)]
-                params = from_leaves(state["m"], params)
-                state = _to(state, dev)
             before = [p.detach().clone() for p in leaves(params)]
             _, _, metrics = fns["step"](params, state, batch)
             lanes[lane] = (float(metrics["loss"]), float(metrics["grad_norm"]),
                            [(p.detach() - b).cpu() for p, b in zip(leaves(params), before)])
             del params, state, before
+        del on_card
         torch.cuda.synchronize()
         (lc, gc, dc), (lg, gg, dg) = lanes["cpu"], lanes["cuda"]
         num = sum(float(((a - b) ** 2).sum()) for a, b in zip(dc, dg))
@@ -1932,7 +2009,8 @@ def train_lanes_agree(dev) -> dict:
         worst = max(float((a - b).abs().max()) for a, b in zip(dc, dg))
         lr1 = 3e-4 / 200  # the first step's lr: the schedule's default warm-up
         row = {"loss": {"cpu": lc, "cuda": lg}, "grad_norm": {"cpu": gc, "cuda": gg},
-               "update_rel_l2": (num / den) ** 0.5, "update_max_abs_diff": worst}
+               "update_rel_l2": (num / den) ** 0.5, "update_max_abs_diff": worst,
+               "s": time.perf_counter() - t}
         check(abs(lc - lg) <= TRAIN_LANE_TOL * abs(lc)
               and abs(gc - gg) <= TRAIN_LANE_TOL * abs(gc)
               and row["update_rel_l2"] <= TRAIN_LANE_TOL and worst <= 2 * lr1 * 1.01,
@@ -1984,22 +2062,35 @@ def float32_view(params):
 
 # ------------------------------------------------------------ model serving
 def _device_us(prof) -> float:
-    import torch
-
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(us for _, us in _cuda_events(prof))
 
 
-def _top_kernels(prof, n: int = 8) -> dict:
-    """The ``n`` kernels of a profile with the most device time, ms by
-    name (names cut to 90 characters)."""
-    import torch
-
+def _by_name(events) -> collections.Counter:
+    """Device µs of ``_cuda_events`` by kernel name."""
     total = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            total[e.name[:90]] += e.device_time_total
+    for name, us in events:
+        total[name] += us
+    return total
+
+
+def _kernel_us(prof) -> collections.Counter:
+    """A profile's device time by kernel name, in µs."""
+    return _by_name(_cuda_events(prof))
+
+
+def _top_kernels(kernel_us: collections.Counter, n: int = 8) -> dict:
+    """The ``n`` kernels of ``_kernel_us`` with the most device time, ms by
+    name (names cut to 90 characters)."""
+    total = collections.Counter()
+    for name, us in kernel_us.items():
+        total[name[:90]] += us
     return {k: v / 1e3 for k, v in total.most_common(n)}
+
+
+def _kernel_ms(kernel_us: collections.Counter, names) -> dict:
+    """ms of the kernels of ``_kernel_us`` whose name holds each of
+    ``names``."""
+    return {k: sum(us for n, us in kernel_us.items() if k in n) / 1e3 for k in names}
 
 
 def _logit_agreement(a, b) -> dict:
@@ -2022,10 +2113,10 @@ def _logit_agreement(a, b) -> dict:
             "top1_agree": same / n}
 
 
-def frontend_inputs(cfg, gen, dev) -> dict:
+def frontend_inputs(cfg, gen, dev, batch: int = SERVE_BATCH) -> dict:
     """The frontend's input of an encoder arch (``frames``) or a VLM
-    (``extra_embeds``): SERVE_BATCH x ``frontend_len`` normal embeddings
-    drawn from ``gen`` on the card, in the compute dtype (the token
+    (``extra_embeds``): ``batch`` x ``frontend_len`` normal embeddings
+    drawn from ``gen`` on ``dev``, in the compute dtype (the token
     embeddings times sqrt(D) have unit scale too); {} for a text-only
     arch."""
     import torch
@@ -2033,7 +2124,7 @@ def frontend_inputs(cfg, gen, dev) -> dict:
     if cfg.frontend == "none":
         return {}
     key = "frames" if cfg.has_encoder else "extra_embeds"
-    x = torch.randn((SERVE_BATCH, cfg.frontend_len, cfg.d_model), generator=gen, device=dev)
+    x = torch.randn((batch, cfg.frontend_len, cfg.d_model), generator=gen, device=dev)
     return {key: x.to(getattr(torch, cfg.compute_dtype))}
 
 
@@ -2172,13 +2263,13 @@ def serve_model(name: str, dev, capture: dict, overrides: dict | None = None) ->
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fns["prefill"](params, tokens, **inputs)
         torch.cuda.synchronize()
-    prefill_device_ms = _device_us(prof) / 1e3
-    traced = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(n in e.name for n in ("flash_mma_kernel", "flash_fma_kernel",
-                                            "wkv6_kernel"))]
-    kernel_device_ms = sum(e.device_time_total for e in traced) / 1e3
-    top_kernels = _top_kernels(prof)
+    events = _cuda_events(prof)
+    prefill_device_ms = sum(us for _, us in events) / 1e3
+    traced = [us for name, us in events
+              if any(n in name for n in ("flash_mma_kernel", "flash_fma_kernel",
+                                         "wkv6_kernel"))]
+    kernel_device_ms = sum(traced) / 1e3
+    top_kernels = _top_kernels(_by_name(events))
     del prof
     torch.cuda.synchronize()
     peak_before = torch.cuda.max_memory_allocated()
@@ -2905,10 +2996,7 @@ def profiled_split(fn, n_intervals: int, wall_s: float) -> dict:
         fn()
         torch.cuda.synchronize()
     profiled_s = time.perf_counter() - t
-    device_us = sum(
-        e.device_time_total for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    device_us = _device_us(prof)
     split = {
         "intervals": n_intervals,
         "wall_ms_per_interval": wall_s * 1e3 / n_intervals,
@@ -2925,26 +3013,65 @@ def profiled_split(fn, n_intervals: int, wall_s: float) -> dict:
     return split
 
 
-def generate_traces(jobs: dict) -> dict:
-    """Each ``name -> (workload, kwargs)`` generated in its own process (the
-    generators are single-threaded numpy on the host)."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
+TRACE_WORKERS = 4  # spawned processes generating phases 10 and 11's traces
+BACKGROUND: list = []  # the BackgroundTraces started, which fail() ends
 
+
+class BackgroundTraces:
+    """Each ``name -> (workload, kwargs)`` of ``jobs`` generated in
+    TRACE_WORKERS spawned processes (the generators are single-threaded
+    numpy on the host) at the lowest CPU priority, started when made:
+    main() starts phases 10 and 11's traces before phase 1, so they take
+    the cores the build, the kernel checks and the lanes leave idle, not
+    the host time phases 4 to 9 measure (started after phase 3 at the
+    default priority, they made phase 4's sweep 44% slower on the host of
+    an H100 80GB HBM3 at 700 W). ``take(names)`` waits for those traces
+    and hands them over."""
+
+    def __init__(self, jobs: dict):
+        import multiprocessing
+        import os
+        from concurrent.futures import ProcessPoolExecutor
+
+        from repro_torch.sim.workloads import WORKLOADS
+
+        self.ex = ProcessPoolExecutor(max_workers=min(len(jobs), TRACE_WORKERS),
+                                      mp_context=multiprocessing.get_context("spawn"),
+                                      initializer=os.nice, initargs=(19,))
+        self.futs = {name: self.ex.submit(WORKLOADS[w], **kw)
+                     for name, (w, kw) in jobs.items()}
+        BACKGROUND.append(self)
+
+    def take(self, names) -> dict:
+        out = {name: self.futs.pop(name).result() for name in names}
+        if not self.futs:
+            self.ex.shutdown()
+        return out
+
+    def close(self) -> None:
+        for proc in list((getattr(self.ex, "_processes", None) or {}).values()):
+            proc.kill()
+        self.ex.shutdown(wait=False, cancel_futures=True)
+
+
+def paper_trace_jobs() -> dict:
+    """Phase 10's traces: every workload at its defaults, and the btree at
+    BIG_BTREE."""
     from repro_torch.sim.workloads import WORKLOADS
 
-    workers = max(1, min(len(jobs), (os.cpu_count() or 1) - 1))
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
-        futs = {name: ex.submit(WORKLOADS[w], **kw) for name, (w, kw) in jobs.items()}
-        return {name: f.result() for name, f in futs.items()}
+    return {**{name: (name, {}) for name in WORKLOADS}, "btree_big": ("btree", BIG_BTREE)}
 
 
-def paper_experiment(dev) -> dict:
+def fleet_full_jobs() -> dict:
+    """Phase 11's skewed mix at phase 4's RSS: tenant -> (workload, kwargs)."""
+    return {name: (w, kw) for name, w, kw, _ in fleet_mix_jobs(**FLEET_FULL_SIZE)["skewed"]}
+
+
+def paper_experiment(dev, background: BackgroundTraces) -> dict:
     """The paper's loop on the card: the database, Figs. 3-7 at the default
     sizes with the thrash row and the knee block, the CPU lane against
-    each, and TPP vs TPP+Tuna on the btree at 1,607,817 pages."""
+    each, and TPP vs TPP+Tuna on the btree at 1,607,817 pages; the traces
+    (``paper_trace_jobs``) from ``background``."""
     import numpy as np
     import torch
 
@@ -2953,15 +3080,12 @@ def paper_experiment(dev) -> dict:
         victim_partition_plain,
     )
     from repro_torch.sim import torch_engine
-    from repro_torch.sim.workloads import WORKLOADS
 
     seconds = {}
     t = time.perf_counter()
-    jobs = {name: (name, {}) for name in WORKLOADS}
-    jobs["btree_big"] = ("btree", BIG_BTREE)
-    traces = generate_traces(jobs)
+    traces = background.take(paper_trace_jobs())
     big = traces.pop("btree_big")
-    seconds["trace_generation_s"] = time.perf_counter() - t
+    seconds["trace_wait_s"] = time.perf_counter() - t
     check(big.rss_pages == BIG_BTREE_PAGES,
           f"btree_trace({BIG_BTREE}) has {big.rss_pages} pages")
 
@@ -3112,8 +3236,9 @@ TAU_FLEET = 0.2
 # the fleet mixes' sizes: fig_fleet.py's defaults, and the skewed mix at
 # phase 4's RSS (3,250,584 pages of 4 KiB, 13.3 GB: tenants of 1,625,292 +
 # 812,646 + 812,646 pages, pages_per_session scaled by the same factor)
+# over 24 of the 48 intervals (one diurnal cycle still; for the script's time)
 FLEET_SIZE = dict(ni=48, rss=12_000, pps=600, noisy_rss=8_000)
-FLEET_FULL_SIZE = dict(ni=48, rss=812_646, pps=40_632, noisy_rss=8_000)
+FLEET_FULL_SIZE = dict(ni=24, rss=812_646, pps=40_632, noisy_rss=8_000)
 # MultiTenantKV at Qwen3-1.7B's KV page: 2,048 pinned host pages (3.76 GB),
 # an HBM budget of 512 slots, each tenant's ceiling half its pages
 FLEET_KV_TENANTS = {"a": 1024, "b": 512, "c": 512}
@@ -3518,8 +3643,7 @@ def fleet_kv_phase(dev) -> dict:
     wall_s = time.perf_counter() - t
     launches = migrate_pages.launches
     check(launches > 0, "MultiTenantKV never launched migrate_pages")
-    device_us = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    device_us = _device_us(prof)
     # after each rebalance every tenant holds at most its effective size,
     # and that size is its grant to within its controller's deadband (the
     # arbiter's apply stops there, as in the JAX package), so the HBM in
@@ -3593,8 +3717,7 @@ def real_size_run(fn, n_intervals: int) -> dict:
         rs = fn()
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
-    device_us = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    device_us = _device_us(prof)
     split = {"intervals": n_intervals, "wall_s": wall_s,
              "wall_ms_per_interval": wall_s * 1e3 / n_intervals,
              "device_ms_per_interval": device_us / 1e3 / n_intervals,
@@ -3614,11 +3737,13 @@ def check_runs(rs, dev) -> None:
               f"{rs.name}/{r.scenario}/{r.policy}: bad interval times")
 
 
-def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
+def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict,
+                      background: BackgroundTraces) -> dict:
     """Phase 11: fault resilience (CPU == CUDA, then phase 4's trace under
     harsh faults), the three fleet mixes (CPU == CUDA, the noisy mix under
-    harsh faults, then the skewed mix at phase 4's RSS on the card), and
-    MultiTenantKV at Qwen3-1.7B's KV page."""
+    harsh faults, then the skewed mix at phase 4's RSS on the card, its
+    traces, ``fleet_full_jobs``, from ``background``), and MultiTenantKV at
+    Qwen3-1.7B's KV page."""
     import torch
 
     from repro_torch.kernels.victim_partition import victim_partition
@@ -3655,8 +3780,9 @@ def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
     out["fault_launches"] = victim_partition.launches
     seconds["faults_s"] = time.perf_counter() - t
 
-    # --- (a) phase 4's trace under harsh faults: the paper's 20 sizes
-    # untuned with TPP+Tuna riding along in the same tuned sweep
+    # --- (a) phase 4's trace under harsh faults: every other of the paper's
+    # 20 sizes (10, for the script's time) untuned with TPP+Tuna riding
+    # along in the same tuned sweep
     t = time.perf_counter()
     harsh = levels["harsh"]
     n_int = len(full_thrash)
@@ -3664,7 +3790,7 @@ def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
         name="faults@harsh[full]",
         scenarios=[api.Scenario(trace=full_thrash, name="thrash_full@harsh",
                                 faults=harsh)],
-        fm_fracs=SWEEP_FRACS,
+        fm_fracs=SWEEP_FRACS[::2],
         policies=[api.PolicySpec(label="tpp"),
                   api.PolicySpec(label="tuna", fm_frac=1.0, tuner=paper_tuner())],
     ), db=db), n_int)
@@ -3735,9 +3861,9 @@ def faults_and_fleets(dev, db, thrash, full_thrash, phase4_split: dict) -> dict:
     # --- (b) the skewed mix at phase 4's RSS, on the card only
     t = time.perf_counter()
     jobs = fleet_mix_jobs(**FLEET_FULL_SIZE)["skewed"]
-    traces = generate_traces({name: (w, kw) for name, w, kw, _ in jobs})
+    traces = background.take(fleet_full_jobs())
     tenants = fleet_tenants(jobs, traces)
-    seconds["fleet_full_traces_s"] = time.perf_counter() - t
+    seconds["fleet_full_trace_wait_s"] = time.perf_counter() - t
     pages = sum(t_.trace.rss_pages for t_ in tenants)
     check(pages == 3_250_584, f"the full-size fleet has {pages} pages")
     full = {"pages": pages, "tenant_pages": [t_.trace.rss_pages for t_ in tenants]}
@@ -4427,6 +4553,20 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
 
     plain = PlainReplays()
     try:
+        # --- (g) the timing lane at real size; its first (whole) replay and
+        # a launch of every replay's prefix go to the plain version, first,
+        # so the plain replays run beside (d) to (f)
+        t = time.perf_counter()
+        out["timing_full"], (args, got) = timing_full(dev, full_trace)
+        plain.submit(f"the whole first replay at {full_trace.rss_pages} pages "
+                     f"({out['timing_full']['events_per_interval'][0]} events)",
+                     sub_launch(args, 0, 1), got[:1], chunk=1)
+        prefix = prefix_launch(args)
+        plain.submit(f"the first {REPLAY_PREFIX} events of each of {got.numel()} "
+                     "real-size replays, one launch", *prefix, chunk=1)
+        del args, got
+        seconds["timing_full_s"] = time.perf_counter() - t
+
         # --- (d) the fidelity experiment at its defaults, on the card; its
         # first launch over more than one block of replays goes to the plain
         # version beside the phase
@@ -4475,19 +4615,6 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
         out["per_size"] = per_size_engine(dev, traces["thrash"])
         seconds["per_size_s"] = time.perf_counter() - t
 
-        # --- (g) the timing lane at real size; its first (whole) replay and
-        # a launch of every replay's prefix go to the plain version
-        t = time.perf_counter()
-        out["timing_full"], (args, got) = timing_full(dev, full_trace)
-        plain.submit(f"the whole first replay at {full_trace.rss_pages} pages "
-                     f"({out['timing_full']['events_per_interval'][0]} events)",
-                     sub_launch(args, 0, 1), got[:1], chunk=1)
-        prefix = prefix_launch(args)
-        plain.submit(f"the first {REPLAY_PREFIX} events of each of {got.numel()} "
-                     "real-size replays, one launch", *prefix, chunk=1)
-        del args, got
-        seconds["timing_full_s"] = time.perf_counter() - t
-
         # --- (a) the replay kernel against its plain version
         t = time.perf_counter()
         out["replay_checks"] = replay_checks(dev, cal_rec.calls + quick_rec.calls,
@@ -4513,7 +4640,8 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
 # JSON and the fan-out's failures (repro_torch.sim.api,
 # repro_torch.tiering.policy, repro_torch.core.tuner.build_database).
 FANOUT_WORKERS = 4  # spawned processes of the fanned-out database build
-HANG_TIMEOUT_S = 15.0  # scenario_timeout of the hung scenario in (e)
+FANOUT_STRIDE = 4  # (b) rebuilds every FANOUT_STRIDE-th record of phase 10's database
+HANG_TIMEOUT_S = 5.0  # scenario_timeout of the hung scenario in (e)
 
 
 def plugin_classes():
@@ -4610,10 +4738,11 @@ def registry_checks(dev, trace) -> dict:
 
 
 def fanout_build(dev, configs, serial_db, serial_s: float) -> dict:
-    """(b): build_database over phase 10's configurations in FANOUT_WORKERS
-    spawned processes, record by record equal to phase 10's serial build;
-    the RunSet is read through a wrapper of ``api.run``, and a run that fell
-    back to serial fails the phase."""
+    """(b): build_database over every FANOUT_STRIDE-th of phase 10's
+    configurations (each record is its own scenario, whatever the others)
+    in FANOUT_WORKERS spawned processes, record by record equal to phase
+    10's serial build of them; the RunSet is read through a wrapper of
+    ``api.run``, and a run that fell back to serial fails the phase."""
     import os
 
     import numpy as np
@@ -4630,6 +4759,8 @@ def fanout_build(dev, configs, serial_db, serial_s: float) -> dict:
         seen.append(rs)
         return rs
 
+    configs = configs[::FANOUT_STRIDE]
+    serial = serial_db.records[::FANOUT_STRIDE]
     api.run = recording
     t = time.perf_counter()
     try:
@@ -4646,29 +4777,30 @@ def fanout_build(dev, configs, serial_db, serial_s: float) -> dict:
     pids = sorted({w["pid"] for w in fan})
     check(len(pids) > 1 and os.getpid() not in pids,
           f"fan-out build ran in processes {pids} (parent {os.getpid()})")
-    check(len(db.records) == len(serial_db.records) == len(configs),
-          "fan-out build: record count")
+    check(len(db.records) == len(serial) == len(configs), "fan-out build: record count")
     same = all(np.array_equal(a.times, b.times) and a.times.dtype == b.times.dtype
                and a.config == b.config and np.array_equal(a.fm_fracs, b.fm_fracs)
-               for a, b in zip(db.records, serial_db.records))
+               for a, b in zip(db.records, serial))
     check(same, "fan-out build differs from phase 10's serial build")
     peak = {}
     for w in fan:
         peak[w["pid"]] = max(peak.get(w["pid"], 0), w["peak_hbm_bytes"] or 0)
     launches = sum(w["launches"].get("victim_partition", 0) for w in fan)
     check(launches > 0, "fan-out build: no worker launched victim_partition")
-    return {"records": len(db.records), "workers": FANOUT_WORKERS,
+    return {"records": len(db.records), "of_records": len(serial_db.records),
+            "workers": FANOUT_WORKERS,
             "victim_partition_launches_in_workers": launches,
             "worker_pids": pids, "parent_pid": os.getpid(),
             "scenarios_per_worker": {str(p): sum(w["pid"] == p for w in fan) for p in pids},
             "peak_hbm_bytes_per_worker": {str(p): b for p, b in peak.items()},
-            "fanout_s": fanout_s, "serial_s": serial_s, "speedup": serial_s / fanout_s}
+            "fanout_s": fanout_s, "serial_s_of_records": serial_s}
 
 
-def cache_checks(dev, profile, phase4_rs) -> dict:
-    """(c): phase 4's profile experiment through run(cache_dir=...) twice:
-    the first document equals phase 4's RunSet (apart from the spec's
-    cache-neutral entries), the second call is a hit that launches
+def cache_checks(dev, experiment, db, phase4_rs) -> dict:
+    """(c): phase 4's tuned experiment (the quickstart's TPP and TPP+Tuna
+    at full size, over phase 4's database) through run(cache_dir=...)
+    twice: the first document equals phase 4's RunSet (apart from the
+    spec's cache-neutral entries), the second call is a hit that launches
     nothing."""
     import tempfile
 
@@ -4689,7 +4821,7 @@ def cache_checks(dev, profile, phase4_rs) -> dict:
         for attempt in ("miss_s", "hit_s"):
             before = victim_partition.launches
             t = time.perf_counter()
-            rs = api.run(profile, cache_dir=tmp)
+            rs = api.run(experiment, db=db, cache_dir=tmp)
             torch.cuda.synchronize()
             out[attempt] = time.perf_counter() - t
             launches.append(victim_partition.launches - before)
@@ -4809,7 +4941,7 @@ def experiment_api(dev, card: str, phase4: dict, paper: dict, runsets: dict) -> 
                                        paper["seconds"]["build_database_s"])
     out["seconds"]["fanout_build_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    out["cache"] = cache_checks(dev, phase4["profile"], phase4["runsets"][0])
+    out["cache"] = cache_checks(dev, phase4["quickstart"], phase4["db"], phase4["runsets"][1])
     out["seconds"]["cache_s"] = time.perf_counter() - t
     t = time.perf_counter()
     out["json"] = json_round_trips(runsets)
@@ -4837,7 +4969,48 @@ TRAIN_BATCH, TRAIN_LEN = 4, 2048
 TRAIN_STEPS, TRAIN_FAIL_AT = 6, 2
 GRAD_LAYERS = 2
 RESUME_STEPS, RESUME_AT = 4, 2
+# (f) the MoE, MLA, encoder-decoder, VLM and hybrid families, each trained
+# FAMILY_STEPS steps at full width, remat="full", with the same gradient and
+# remat checks at GRAD_LAYERS layers. The settings of each arch:
+#   trainer      driven through ``train`` (its data stream has no frames or
+#                patches); else make_train_fns' step on batches with the
+#                arch's frames or patches
+#   seq          tokens a sequence (TRAIN_LEN when absent)
+#   lane_layout  trained at LANE_OVERRIDES' layout and GRAD_LAYERS layers,
+#                not at full depth
+#   state        the AdamW state's dtype (float32 when absent)
+#   host_weights the gradient check's float32 pass holds the arch's bfloat16
+#                weights in host memory
+#   bwd_timed    (e) times the backward kernel at each layout the arch's
+#                gradient check gave flash_attention
+# Jamba-1.5-Large's lane layout (one attention and one Mamba block, the Mamba
+# block's FFN an MoE of 4 experts) has 4.67 B parameters: its bfloat16
+# weights and gradients with float32 AdamW state would take 56 GB before an
+# activation, so its state is bfloat16 (the JAX package's opt_state_dtype),
+# 37.4 GB; its float32 weights and gradients alone are 37.4 GB too, and its
+# float32 activations as many again, hence host_weights.
+FAMILY_RUNS = {
+    "granite-moe-1b-a400m": {"trainer": True},
+    "minicpm3-4b": {"trainer": True},
+    "whisper-small": {"seq": 448, "bwd_timed": True},  # its text context, over 1,500 frames
+    "internvl2-1b": {"bwd_timed": True},
+    "jamba-1.5-large-398b": {"lane_layout": True, "state": "bfloat16", "host_weights": True,
+                             "bwd_timed": True},
+}
+FAMILY_STEPS = 3
 
+
+def family_cfg(name: str):
+    """``name``'s config as (f) trains it: full depth, or GRAD_LAYERS layers
+    at LANE_OVERRIDES' layout for a ``lane_layout`` arch."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if FAMILY_RUNS[name].get("lane_layout"):
+        cfg = replace(cfg, num_layers=GRAD_LAYERS, **LANE_OVERRIDES[name])
+    return cfg
 
 def _leaf_copy(params, dtype=None):
     """A detached copy of a parameter tree (cast to ``dtype``), every
@@ -4849,14 +5022,48 @@ def _leaf_copy(params, dtype=None):
     return params.detach().to(dtype or params.dtype).clone().requires_grad_(True)
 
 
-def _grads_rel_l2(a, b) -> float:
-    """||a - b|| / ||b|| over every gradient of two lists, in float64."""
+def _grads_rel_l2(a, b, chunk: int = 1 << 26) -> float:
+    """||a - b|| / ||b|| over every gradient of two lists, in float64,
+    ``chunk`` elements at a time (a float64 copy of one of Jamba's expert
+    weights would be 6.4 GB)."""
     import torch
 
-    num = sum(float(((x.double() - y.double()) ** 2).sum()) for x, y in zip(a, b))
-    den = sum(float((y.double() ** 2).sum()) for y in b)
+    num = den = 0.0
+    for x, y in zip(a, b):
+        x, y = x.reshape(-1), y.reshape(-1)
+        for i in range(0, x.numel(), chunk):
+            xs, ys = x[i:i + chunk].double(), y[i:i + chunk].double()
+            num += float(((xs - ys) ** 2).sum())
+            den += float((ys ** 2).sum())
     torch.cuda.synchronize()
     return (num / den) ** 0.5 if den else 0.0
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one training step under remat="full": a decoder
+    GQA self- or cross-attention layer launches flash_attention twice (its
+    forward and the backward's recompute) and flash_attention_bwd once (MLA
+    attends in plain PyTorch: none), an encoder layer (not rematted, as in
+    the JAX package) each once, an RWKV layer wkv6 twice and wkv6_bwd
+    once."""
+    attn = sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
+    dec = (attn if cfg.attn_type == "gqa" else 0) + (attn if cfg.has_encoder else 0)
+    rwkv = sum(k == "rwkv" for k in cfg.block_pattern) * cfg.num_groups
+    return {"flash_attention": 2 * dec + cfg.encoder_layers,
+            "flash_attention_bwd": dec + cfg.encoder_layers,
+            "wkv6": 2 * rwkv, "wkv6_bwd": rwkv}
+
+
+def train_batch(cfg, seq_len: int, step: int, gen, dev, seed: int) -> dict:
+    """Step ``step``'s batch of TRAIN_BATCH sequences of the data stream
+    (tokens and labels, from ``seed``) with an encoder arch's ``frames`` or
+    a VLM's ``patches`` (``frontend_inputs`` from ``gen``)."""
+    from repro_torch.data import SyntheticLMDataset
+
+    out = SyntheticLMDataset(cfg.vocab_size, seq_len, TRAIN_BATCH, seed=seed).batch_at(step)
+    for k, v in frontend_inputs(cfg, gen, dev, TRAIN_BATCH).items():
+        out["patches" if k == "extra_embeds" else k] = v
+    return out
 
 
 def train_run(name: str, dev) -> dict:
@@ -4889,12 +5096,7 @@ def train_run(name: str, dev) -> dict:
     wall_s = time.perf_counter() - t
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated()
-    n_attn = (sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
-              if cfg.attn_type == "gqa" else 0)
-    n_rwkv = sum(k == "rwkv" for k in cfg.block_pattern) * cfg.num_groups
-    want = {"flash_attention": 2 * n_attn * TRAIN_STEPS,
-            "flash_attention_bwd": n_attn * TRAIN_STEPS,
-            "wkv6": 2 * n_rwkv * TRAIN_STEPS, "wkv6_bwd": n_rwkv * TRAIN_STEPS}
+    want = {k: n * TRAIN_STEPS for k, n in train_launches(cfg).items()}
     check(launches == want, f"{name}: training launched {launches}, want {want}")
     check(len(rep.losses) == TRAIN_STEPS and all(map(math.isfinite, rep.losses)),
           f"{name}: training losses {rep.losses}")
@@ -4909,12 +5111,10 @@ def train_run(name: str, dev) -> dict:
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fns["step"](params, state, batch)
         torch.cuda.synchronize()
-    device_ms = _device_us(prof) / 1e3
-    kernel_ms = {k: sum(e.device_time_total for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and k in e.name) / 1e3
-                 for k in ("flash_mma_kernel", *BWD_KERNELS["flash_attention_bwd"],
-                           "wkv6_kernel", *BWD_KERNELS["wkv6_bwd"])}
+    kernel_us = _kernel_us(prof)
+    device_ms = sum(kernel_us.values()) / 1e3
+    kernel_ms = _kernel_ms(kernel_us, ("flash_mma_kernel", *BWD_KERNELS["flash_attention_bwd"],
+                                       "wkv6_kernel", *BWD_KERNELS["wkv6_bwd"]))
     del prof, params, state
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4935,19 +5135,24 @@ def train_run(name: str, dev) -> dict:
 
 
 def train_grads(name: str, dev, capture: dict) -> dict:
-    """At full width and GRAD_LAYERS layers: one step's gradients through
-    the kernels held against the same step's through the plain versions on
-    the card, within MODEL_PATH_FACTOR x the distance of the plain
-    bfloat16 gradients from the plain float32 ones (relative L2 over every
-    gradient); (c) remat "none", "dots" and "full" through the kernels give
-    the same gradients bit for bit. ``capture`` receives the first layer's
-    kernel inputs."""
+    """At full width and GRAD_LAYERS layers (an encoder's too; Jamba's
+    lane layout, LANE_OVERRIDES): one step's gradients through the kernels
+    held against the same step's through the plain versions on the card,
+    within MODEL_PATH_FACTOR x the distance of the plain bfloat16 gradients
+    from the plain float32 ones (relative L2 over every gradient); (c)
+    remat "none", "dots" and "full" through the kernels give the same
+    gradients bit for bit. The float32 pass runs first, and a
+    ``host_weights`` arch of FAMILY_RUNS keeps its bfloat16 weights in host
+    memory meanwhile. The
+    peak memory of each pass is reported.
+    ``capture`` receives the first layer's kernel inputs and, under
+    ``("flash_layouts", name)``, the first call of each (S, T, causal)
+    layout of ``flash_attention``."""
     from dataclasses import replace
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_plain)
@@ -4956,13 +5161,20 @@ def train_grads(name: str, dev, capture: dict) -> dict:
     from repro_torch.models import init_model
     from repro_torch.optim.adamw import leaves
 
-    cfg = replace(get_config(name), num_layers=GRAD_LAYERS)
+    cfg = replace(get_config(name), num_layers=GRAD_LAYERS, **LANE_OVERRIDES.get(name, {}))
     cfg32 = replace(cfg, param_dtype="float32", compute_dtype="float32")
-    params = _leaf_copy(init_model(cfg, generator=torch.Generator(device=dev).manual_seed(52)))
-    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH, seed=53).batch_at(0)
+    run = FAMILY_RUNS.get(name, {})
+    host = run.get("host_weights", False)
+    gen = torch.Generator(device=dev).manual_seed(52)
+    params = _leaf_copy(init_model(cfg, generator=gen))
+    batch = train_batch(cfg, run.get("seq", TRAIN_LEN), 0, gen, dev, seed=53)
 
-    def grads(p, c, remat="none", attention=flash_attention, recurrence=wkv6):
+    peaks = {}
+
+    def grads(p, c, remat="none", attention=flash_attention, recurrence=wkv6, key=None):
         ops.attention, ops.wkv6 = attention, recurrence
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         try:
             with torch.enable_grad():
                 loss = make_train_fns(c, remat=remat)["loss"](p, batch)
@@ -4970,28 +5182,43 @@ def train_grads(name: str, dev, capture: dict) -> dict:
         finally:
             ops.attention, ops.wkv6 = flash_attention, wkv6
         torch.cuda.synchronize()
+        peaks[key or remat] = torch.cuda.max_memory_allocated()
         return float(loss.detach()), g
+
+    layouts = capture.setdefault(("flash_layouts", name), {})
 
     def recording(kernel, key):
         def call(*args, **kw):
             if key not in capture:
                 capture[key] = [a.detach().clone() for a in args]
+            if key == "flash_attention" and run.get("bwd_timed"):
+                layout = (args[0].shape[1], args[1].shape[1], kw.get("causal", True))
+                if layout not in layouts:
+                    layouts[layout] = [a.detach().clone() for a in args]
             return kernel(*args, **kw)
         return call
 
+    params32 = _leaf_copy(params, torch.float32)
+    if host:  # the bfloat16 weights wait in host memory
+        params = _to(_leaf_copy(params), "cpu")
+        torch.cuda.empty_cache()
+    loss_32, g_32 = grads(params32, cfg32, attention=flash_attention_plain,
+                          recurrence=wkv6_plain, key="f32")
+    del params32
+    if host:
+        params = _leaf_copy(_to(params, dev))
     counters = (flash_attention, flash_attention_bwd, wkv6, wkv6_bwd)
     for c in counters:
         c.launches = 0
     t = time.perf_counter()
     loss_k, g_k = grads(params, cfg, attention=recording(flash_attention, "flash_attention"),
-                        recurrence=recording(wkv6, "wkv6"))
+                        recurrence=recording(wkv6, "wkv6"), key="kernels")
     kernel_s = time.perf_counter() - t
     launches = {c.__name__: c.launches for c in counters}
     t = time.perf_counter()
-    loss_p, g_p = grads(params, cfg, attention=flash_attention_plain, recurrence=wkv6_plain)
+    loss_p, g_p = grads(params, cfg, attention=flash_attention_plain, recurrence=wkv6_plain,
+                        key="plain")
     plain_s = time.perf_counter() - t
-    loss_32, g_32 = grads(_leaf_copy(params, torch.float32), cfg32,
-                          attention=flash_attention_plain, recurrence=wkv6_plain)
     path = _grads_rel_l2(g_k, g_p)
     kernel_vs_f32 = _grads_rel_l2(g_k, g_32)
     plain_vs_f32 = _grads_rel_l2(g_p, g_32)
@@ -5014,7 +5241,8 @@ def train_grads(name: str, dev, capture: dict) -> dict:
             "grads_rel_l2": {"kernels_vs_plain": path, "kernels_vs_f32": kernel_vs_f32,
                              "plain_vs_f32": plain_vs_f32},
             "launches": launches, "kernel_s": kernel_s, "plain_s": plain_s,
-            "remat_vs_none": remat}
+            "remat_vs_none": remat, "weights_in_host_memory_for_f32": host,
+            "peak_memory_bytes": peaks}
 
 
 def resume_check() -> dict:
@@ -5056,9 +5284,10 @@ def resume_check() -> dict:
             "bit_equal": True, "checkpoint_bytes": nbytes, **seconds}
 
 
-def time_flash_bwd(capture: dict) -> dict:
-    """(e) flash_attention_bwd on the first Qwen3-1.7B layer's training
-    inputs, beside autograd of the plain version, the bound and the
+def time_flash_bwd(q, k, v, causal: bool = True) -> dict:
+    """(e) flash_attention_bwd on a layer's captured training inputs (the
+    first Qwen3-1.7B layer's; then each layout of the ``bwd_timed`` archs'
+    gradient checks), beside autograd of the plain version, the bound and the
     backward of scaled_dot_product_attention (a yardstick only; the port
     never calls it)."""
     import torch
@@ -5067,23 +5296,23 @@ def time_flash_bwd(capture: dict) -> dict:
         _launch, flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.roofline import HW
 
-    q, k, v = capture["flash_attention"]
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     do = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(55),
                      device=q.device).to(q.dtype)
-    out, lse = _launch(q, k, v, True, with_lse=True)
-    got = flash_attention_bwd(q, k, v, out, lse, do)
-    want = flash_attention_bwd_plain(q, k, v, do)
+    out, lse = _launch(q, k, v, causal, with_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, do, causal)
     err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
     check(all(float((a.float() - b.float()).abs().max()) <= 1e-2 * float(b.float().abs().max())
               for a, b in zip(got, want)),
           f"flash_attention_bwd on the training inputs: max |diff| {err}")
     del got, want
-    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do), repeats=10)
-    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do), repeats=3, warmup=1)
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, causal), repeats=10)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do, causal), repeats=3,
+                       warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                           enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
@@ -5091,7 +5320,7 @@ def time_flash_bwd(capture: dict) -> dict:
     del ot, qt, kt, vt
     # the function: 2.5 x the forward's 4 flops per (query, key, hd) pair:
     # dV, dP, dQ and dK (2 each) and the scores once (2)
-    flops = 10 * B * H * hd * _visible_pairs(S, T, True)
+    flops = 10 * B * H * hd * _visible_pairs(S, T, causal)
     io_bytes = ((3 * q.numel() + 2 * k.numel() + 2 * v.numel() + q.numel() + k.numel()
                  + v.numel()) * q.element_size() + lse.numel() * 4)
     ops_ms = flops / HW.peak_flops * 1e3
@@ -5100,7 +5329,7 @@ def time_flash_bwd(capture: dict) -> dict:
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": library_ms,
-            "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, "causal": True,
+            "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, "causal": causal,
                       "dtype": str(q.dtype)},
             "gflop": flops / 1e9, "bytes": io_bytes, "tflop_per_s": flops / ms / 1e9,
             "registers": ptxas_registers("flash_attention_bwd")}
@@ -5127,7 +5356,9 @@ def time_wkv6_bwd(capture: dict) -> dict:
           f"wkv6_bwd on the training inputs: max |diff| {err}")
     del got, want
     ms = cuda_ms(lambda: wkv6_bwd(r, k, v, w, u, do), repeats=10)
-    plain_ms = cuda_ms(lambda: wkv6_bwd_plain(r, k, v, w, u, do), repeats=2, warmup=1)
+    # one call (2.5 s on an H100 80GB HBM3 at 700 W): the check's call
+    # above was its warm-up
+    plain_ms = cuda_ms(lambda: wkv6_bwd_plain(r, k, v, w, u, do), repeats=1, warmup=0)
     # per (token, i, j): the state rebuilt (3), G (3), dw, dk, dv, dr (2 each)
     flops = 14 * B * S * H * hd * hd
     n = r.numel()
@@ -5144,10 +5375,198 @@ def time_wkv6_bwd(capture: dict) -> dict:
             "registers": ptxas_registers("wkv6_bwd")}
 
 
+def family_run(name: str, dev) -> dict:
+    """(f) ``name`` trained at full width (``family_cfg``), FAMILY_STEPS
+    steps of TRAIN_BATCH sequences (with their frames or patches),
+    remat="full", as FAMILY_RUNS sets: through ``train`` or make_train_fns'
+    step, the AdamW state in its dtype, each step's time
+    by the host clock with the loss read inside it. The kernel counts are
+    set to 0 just before and read just after: each step must launch what
+    ``train_launches`` reckons. Then one step under the profiler (the
+    card's activity; after the run's steps, or on a fresh init for
+    ``train``, which keeps its weights to itself) for its device time; for
+    an arch with bfloat16
+    state also the AdamW update's memory above what the step holds before
+    it (``optimizer_memory``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+    from repro_torch.launch.train import make_train_fns
+    from repro_torch.launch.trainer import train
+    from repro_torch.models import active_param_count, param_count
+
+    run = FAMILY_RUNS[name]
+    cfg = family_cfg(name)
+    seq = run.get("seq", TRAIN_LEN)
+    state_dtype = getattr(torch, run.get("state", "float32"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash_attention, flash_attention_bwd, wkv6, wkv6_bwd)
+    for c in counters:
+        c.launches = 0
+    fns = make_train_fns(cfg, remat="full", opt_state_dtype=state_dtype)
+    gen = torch.Generator(device=dev).manual_seed(57)
+    seconds = {}
+    t = time.perf_counter()
+    if run.get("trainer"):
+        rep = train(cfg, steps=FAMILY_STEPS, global_batch=TRAIN_BATCH, seq_len=seq,
+                    remat="full", seed=57)
+        losses, step_times = rep.losses, rep.step_times
+        params = None
+    else:
+        params, state = fns["init"](gen)
+        losses, step_times = [], []
+        for step in range(FAMILY_STEPS):
+            batch = train_batch(cfg, seq, step, gen, dev, seed=57)
+            t0 = time.perf_counter()
+            params, state, metrics = fns["step"](params, state, batch)
+            losses.append(float(metrics["loss"]))
+            step_times.append(time.perf_counter() - t0)
+    wall_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * FAMILY_STEPS for k, n in train_launches(cfg).items()}
+    check(launches == want, f"{name}: training launched {launches}, want {want}")
+    check(len(losses) == FAMILY_STEPS and all(map(math.isfinite, losses)),
+          f"{name}: training losses {losses}")
+    step_s = statistics.median(step_times[1:])
+
+    t = time.perf_counter()
+    if params is None:
+        params, state = fns["init"](gen)
+    batch = train_batch(cfg, seq, FAMILY_STEPS, gen, dev, seed=57)
+    torch.cuda.synchronize()
+    seconds["profile_init_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # the card's activity alone: with the host's ops too, reading a step's
+    # profile took 7-25 s a run (PERF.md §6)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fns["step"](params, state, batch)
+        torch.cuda.synchronize()
+    seconds["profiled_step_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    kernel_us = _kernel_us(prof)
+    device_ms = sum(kernel_us.values()) / 1e3
+    kernel_ms = _kernel_ms(kernel_us, ("flash_mma_kernel", *BWD_KERNELS["flash_attention_bwd"]))
+    top = _top_kernels(kernel_us)
+    del prof
+    seconds["profile_read_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    optimizer = (optimizer_memory(fns, params, state, batch, state_dtype)
+                 if state_dtype != torch.float32 else None)
+    seconds["optimizer_memory_s"] = time.perf_counter() - t
+    n_params = param_count(params)
+    active = active_param_count(params, cfg)
+    del params, state, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * seq
+    return {
+        "params": n_params, "active_params": active, "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers, "frontend_len": cfg.frontend_len,
+        "lane_layout": ({k: list(v) if isinstance(v, tuple) else v
+                         for k, v in LANE_OVERRIDES[name].items()}
+                        if run.get("lane_layout") else None),
+        "driven_by": "train" if run.get("trainer") else "make_train_fns step",
+        "opt_state_dtype": str(state_dtype), "steps": FAMILY_STEPS, "batch": TRAIN_BATCH,
+        "seq_len": seq, "remat": "full", "losses": losses, "step_s": step_times,
+        "median_step_s": step_s, "wall_s": wall_s, "tokens_per_s": tokens / step_s,
+        "device_ms_per_step": device_ms, "device_busy_share": device_ms / 1e3 / step_s,
+        "kernel_device_ms_per_step": {k: v for k, v in kernel_ms.items() if v},
+        "top_device_ms": top,
+        "launches": launches,
+        "launches_per_step": {k: v / FAMILY_STEPS for k, v in launches.items()},
+        "peak_memory_bytes": peak, "optimizer_memory": optimizer, "seconds": seconds,
+    }
+
+
+def optimizer_memory(fns, params, state, batch, state_dtype) -> dict:
+    """The AdamW update's peak memory above what is allocated before it
+    (weights, state and gradients): one more step, its gradients first,
+    then ``adamw.update_`` (make_train_fns' optimizer, built again with its
+    defaults) alone under a fresh peak count. ``one()`` makes several
+    float32 copies of a leaf at a time."""
+    import torch
+
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.optim.adamw import from_leaves, leaves
+
+    with torch.enable_grad():
+        loss = fns["loss"](params, batch)
+        grads = torch.autograd.grad(loss, leaves(params))
+    del loss
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw(lr=cosine_schedule(3e-4, warmup=200, total=10_000), state_dtype=state_dtype)
+    opt.update_(from_leaves(params, list(grads)), state, params)
+    torch.cuda.synchronize()
+    largest = max(leaves(params), key=lambda p: p.numel())
+    return {"before_bytes": base, "peak_above_bytes": torch.cuda.max_memory_allocated() - base,
+            "largest_leaf": list(largest.shape),
+            "largest_leaf_float32_bytes": largest.numel() * 4}
+
+
+def mamba_scan_check(dev) -> dict:
+    """(g) The chunked Mamba scan's gradient at Jamba-1.5-Large's training
+    shape (B 4, S 2,048, d_inner 16,384, d_state 16; random float32 inputs
+    from a seed): ``layers.MambaScan`` (the h entering each chunk kept, one
+    chunk recomputed at a time in the backward) against autograd of the
+    loop (``layers._mamba_scan``, every position's h and decay kept), each
+    gradient within 1e-5 of its largest value, with each way's peak memory
+    above its inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("jamba-1.5-large-398b")
+    B, S, DI, DS = TRAIN_BATCH, TRAIN_LEN, cfg.d_inner, cfg.mamba_d_state
+    g = torch.Generator(device=dev).manual_seed(58)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    dt = F.softplus(draw(B, S, DI) - 4.0)
+    ins = (dt, dt * draw(B, S, DI), draw(B, S, DS), draw(B, S, DS),
+           -torch.exp(torch.log(torch.arange(1, DS + 1, device=dev, dtype=torch.float32))
+                      + 0.1 * draw(DI, DS)))
+    w = draw(B, S, DI)
+    out = {}
+    for way, scan in (("function", L.MambaScan.apply), ("autograd_of_loop", L._mamba_scan)):
+        leaves = [x.clone().requires_grad_(True) for x in ins]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with torch.enable_grad():
+            y, h = scan(*leaves, L.MAMBA_CHUNK)
+            grads = torch.autograd.grad((y * w).sum(), leaves)
+        torch.cuda.synchronize()
+        out[way] = {"grads": grads, "s": time.perf_counter() - t,
+                    "peak_above_inputs_bytes": torch.cuda.max_memory_allocated() - base}
+        del y, h, leaves
+    pairs = list(zip(("dt", "dtx", "B", "C", "A"), out["function"].pop("grads"),
+                     out["autograd_of_loop"].pop("grads")))
+    rel = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for n, a, b in pairs}
+    same = all(torch.equal(a, b) for _, a, b in pairs)
+    del pairs
+    torch.cuda.empty_cache()
+    check(max(rel.values()) <= 1e-5,
+          f"MambaScan's gradients against autograd of the loop: {rel}")
+    return {"shape": {"B": B, "S": S, "d_inner": DI, "d_state": DS, "chunk": L.MAMBA_CHUNK},
+            "max_rel_diff": rel, "bit_equal": same, **out}
+
+
 def training(dev) -> dict:
     """Phase 14: (a) Qwen3-1.7B and (b) RWKV6-3B trained at full width and
     depth, each with its gradient and remat checks (c) at GRAD_LAYERS
-    layers; (d) resume; (e) the backward kernels timed."""
+    layers; (d) resume; (f) FAMILY_RUNS trained, each with the same checks
+    ((g) the Mamba scan's gradient before Jamba's); (e) the backward
+    kernels timed."""
     out, seconds, capture = {"runs": {}, "grads": {}}, {}, {}
     for name in MODEL_FAMILIES:
         t = time.perf_counter()
@@ -5159,9 +5578,24 @@ def training(dev) -> dict:
     t = time.perf_counter()
     out["resume"] = resume_check()
     seconds["resume"] = time.perf_counter() - t
+    for name in FAMILY_RUNS:
+        if "mamba" in family_cfg(name).block_pattern:
+            t = time.perf_counter()
+            out["mamba_scan"] = mamba_scan_check(dev)
+            seconds["mamba_scan"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["runs"][name] = family_run(name, dev)
+        seconds[f"train_{name}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["grads"][name] = train_grads(name, dev, capture)
+        seconds[f"grads_{name}"] = time.perf_counter() - t
     t = time.perf_counter()
-    out["flash_attention_bwd"] = time_flash_bwd(capture)
+    out["flash_attention_bwd"] = time_flash_bwd(*capture["flash_attention"])
     out["wkv6_bwd"] = time_wkv6_bwd(capture)
+    out["flash_attention_bwd_layouts"] = {
+        f"{name} {S}x{T}{' causal' if causal else ''}": time_flash_bwd(*args, causal)
+        for name, run in FAMILY_RUNS.items() if run.get("bwd_timed")
+        for (S, T, causal), args in capture[("flash_layouts", name)].items()}
     seconds["timing"] = time.perf_counter() - t
     # each backward's device ms a launch, from the profiled training step
     # (the profiler loses launches of a short trace of back-to-back calls);
@@ -5213,6 +5647,9 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.victim_partition import victim_partition
+
+    # phases 10 and 11's traces, made on the host's idle cores from here on
+    background = BackgroundTraces({**paper_trace_jobs(), **fleet_full_jobs()})
 
     t = time.perf_counter()
     libs = _build.build()
@@ -5309,7 +5746,7 @@ def main() -> int:
     log("   wkv6: " + json.dumps(wk))
 
     t = time.perf_counter()
-    paper = paper_experiment(dev)
+    paper = paper_experiment(dev, background)
     paper_db, paper_traces = paper.pop("db"), paper.pop("traces")
     paper_configs, paper_runsets = paper.pop("configs"), paper.pop("runsets")
     log(f"== 10 the paper's experiment (Figs. 3-7, tau = {PAPER_TAU}) on the "
@@ -5327,7 +5764,7 @@ def main() -> int:
 
     t = time.perf_counter()
     ff = faults_and_fleets(dev, paper_db, paper_traces["thrash"], capture["trace"],
-                           summary["profile_sweep_split"])
+                           summary["profile_sweep_split"], background)
     ff["seconds"]["phase_s"] = time.perf_counter() - t
     ff_runsets = ff.pop("runsets")
     log(f"== 11 the fault model and the fleet on the card, CPU lane == CUDA "
@@ -5392,15 +5829,27 @@ def main() -> int:
     t = time.perf_counter()
     tr = training(dev)
     tr["seconds"]["phase_s"] = time.perf_counter() - t
-    log(f"== 14 training on the card ({card}) through repro_torch.launch.trainer.train, "
-        f"{TRAIN_BATCH} x {TRAIN_LEN} tokens a step, remat full, in "
-        f"{tr['seconds']['phase_s']:.2f} s")
+    log(f"== 14 training on the card ({card}) through repro_torch.launch.trainer.train "
+        f"and make_train_fns, {TRAIN_BATCH} x {TRAIN_LEN} tokens a step (Whisper-small "
+        f"{FAMILY_RUNS['whisper-small']['seq']} over 1,500 frames, InternVL2-1B after 256 "
+        f"patches), remat full, in {tr['seconds']['phase_s']:.2f} s")
     for name, row in tr["runs"].items():
-        log(f"   ({'ab'[MODEL_FAMILIES.index(name)]}) {name}: " + json.dumps(row))
+        part = "ab"[MODEL_FAMILIES.index(name)] if name in MODEL_FAMILIES else "f"
+        log(f"   ({part}) {name}: " + json.dumps(row))
         log(f"   (c) {name} at {GRAD_LAYERS} layers, kernels vs plain: "
             + json.dumps(tr["grads"][name]))
+    for name in FAMILY_RUNS:
+        row, grad = tr["runs"][name], tr["grads"][name]
+        log(f"   (f) {name}: {row['tokens_per_s']:.1f} tokens/s, {row['median_step_s']:.4f} s "
+            f"a step, busy {row['device_busy_share']:.3f}, peak {row['peak_memory_bytes']} "
+            f"bytes, launches a step {json.dumps(row['launches_per_step'])}, gradients "
+            f"kernels vs plain {grad['grads_rel_l2']['kernels_vs_plain']:.4g} (plain vs "
+            f"float32 {grad['grads_rel_l2']['plain_vs_f32']:.4g})")
     log("   (d) resume: " + json.dumps(tr["resume"]))
+    log("   (g) the Mamba scan's gradient: " + json.dumps(tr["mamba_scan"]))
     log("   (e) flash_attention_bwd: " + json.dumps(tr["flash_attention_bwd"]))
+    for key, row in tr["flash_attention_bwd_layouts"].items():
+        log(f"   (e) flash_attention_bwd at {key}: " + json.dumps(row))
     log("   (e) wkv6_bwd: " + json.dumps(tr["wkv6_bwd"]))
     log("   seconds " + json.dumps(tr["seconds"]))
 
@@ -5519,6 +5968,8 @@ def main() -> int:
             n: r["decode_flash_attention_launches_per_step"]
             for n, r in more["served"].items() if r["decode_flash_attention_launches_per_step"]},
         "launches_phase15_int8": more["int8"]["launches"]["int8"],
+        "launches_phase14_families": {n: tr["runs"][n]["launches"]["flash_attention"]
+                                      for n in FAMILY_RUNS},
         "phase15": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms", "max_abs_err")}
                     for n, r in more["flash_attention"].items()},
@@ -5557,10 +6008,17 @@ def main() -> int:
         "tpu_kernel": None,
         "launches": qwen3_run["launches"]["flash_attention_bwd"],
         "launches_per_step": qwen3_run["launches_per_step"]["flash_attention_bwd"],
-        "max_abs_err": max(flash_bwd_err, fb["max_abs_err"]),
+        "max_abs_err": max([flash_bwd_err, fb["max_abs_err"]]
+                           + [r["max_abs_err"]
+                              for r in tr["flash_attention_bwd_layouts"].values()]),
         **{k: fb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "device_ms")},
         "launches_training_forward": qwen3_run["launches"]["flash_attention"],
+        "launches_phase14_families": {n: tr["runs"][n]["launches"]["flash_attention_bwd"]
+                                      for n in FAMILY_RUNS},
+        "phase14_layouts": {n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "max_abs_err")}
+                            for n, r in tr["flash_attention_bwd_layouts"].items()},
     }, {
         "name": "wkv6_bwd",
         "route": "cuda",

@@ -57,7 +57,10 @@ def make_train_fns(
       from ``generator`` (on the device), every parameter a leaf that
       requires a gradient;
     * ``step(params, opt_state, batch)`` -- one step on ``batch``
-      (``{"tokens", "labels"}``, (B, S) integer arrays or tensors):
+      (``{"tokens", "labels"}``, (B, S) integer arrays or tensors, and for
+      a VLM ``"patches"`` (B, P, D), for an encoder arch ``"frames"`` (B,
+      T, D): passed to ``forward`` as ``extra_embeds`` and ``frames``, as
+      the JAX ``loss_fn`` passes them):
       ``(params, opt_state, {"loss", "step", "grad_norm"})`` (the
       gradients' global norm before the clip). The loss, the gradients
       and the clip scale are computed first and the update is written into
@@ -80,11 +83,13 @@ def make_train_fns(
         return params, opt.init(params)
 
     def _batch(batch):
-        return {k: torch.as_tensor(batch[k]).to(dev) for k in ("tokens", "labels")}
+        return {k: torch.as_tensor(batch[k]).to(dev)
+                for k in ("tokens", "labels", "patches", "frames") if k in batch}
 
     def loss_fn(params, batch):
         batch = _batch(batch)
-        logits, aux = forward(params, cfg, batch["tokens"], remat=remat)
+        logits, aux = forward(params, cfg, batch["tokens"], extra_embeds=batch.get("patches"),
+                              frames=batch.get("frames"), remat=remat)
         return cross_entropy(logits, batch["labels"]) + aux_weight * aux
 
     def step_fn(params, opt_state, batch):

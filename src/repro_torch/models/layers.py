@@ -490,28 +490,85 @@ def _mamba_conv(p, xs, cfg: ModelConfig, conv_state=None):
     return y + p["conv_b"], xp[:, S:]
 
 
-def _mamba_scan(dt, dtx, Bm, Cm, A, chunk: int):
+def _scan_chunk(dt, dtx, Bm, Cm, A, h):
+    """One chunk of :func:`_mamba_scan` from the state ``h`` that enters
+    it: (y (B, L, DI), the last h)."""
+    decay = torch.exp(dt[..., None] * A).unbind(1)
+    drive = (dtx[..., None] * Bm[:, :, None, :]).unbind(1)
+    hs = []
+    for t in range(dt.shape[1]):
+        h = torch.addcmul(drive[t], decay[t], h)
+        hs.append(h)
+    return torch.einsum("bled,bld->ble", torch.stack(hs, dim=1), Cm), h
+
+
+def _mamba_scan(dt, dtx, Bm, Cm, A, chunk: int, entries: list | None = None):
     """``h_t = exp(dt_t A) h_{t-1} + dtx_t B_t`` from h = 0 over S, and
     ``y_t = h_t . C_t``, in chunks of ``chunk`` positions: only one
     chunk's decays, drives and states (B, L, DI, DS) exist at a time, and
     h carries from chunk to chunk. dt, dtx (B, S, DI), Bm, Cm (B, S, DS)
     and A (DI, DS), all float32. Returns (y (B, S, DI), the last h (B,
-    DI, DS)). No tensor is written in place, so autograd can run through
-    it."""
+    DI, DS)); ``entries`` receives the h that enters each chunk. No tensor
+    is written in place, so autograd can run through it, but it then keeps
+    every position's h and decay and each chunk's stacked states: three
+    (B, S, DI, DS) float32 arrays, 8.6 GB each at Jamba-1.5-Large's
+    training shape (B 4, S 2,048). :class:`MambaScan` is its gradient
+    with one chunk's worth of them at a time."""
     B, S, DI = dt.shape
     h = dt.new_zeros((B, DI, A.shape[-1]))
     ys = []
     for c0 in range(0, S, chunk):
         c1 = min(S, c0 + chunk)
-        decay = torch.exp(dt[:, c0:c1, :, None] * A)
-        drive = dtx[:, c0:c1, :, None] * Bm[:, c0:c1, None, :]
-        hs = []
-        for t in range(c1 - c0):
-            h = torch.addcmul(drive[:, t], decay[:, t], h)
-            hs.append(h)
-        ys.append(torch.einsum("bled,bld->ble", torch.stack(hs, dim=1), Cm[:, c0:c1]))
-        del decay, drive, hs
+        if entries is not None:
+            entries.append(h)
+        y, h = _scan_chunk(dt[:, c0:c1], dtx[:, c0:c1], Bm[:, c0:c1], Cm[:, c0:c1], A, h)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+class MambaScan(torch.autograd.Function):
+    """:func:`_mamba_scan` with a gradient that keeps only the h entering
+    each chunk (S / chunk states of (B, DI, DS) float32: 16 x 4.2 MB at
+    B 4, S 2,048, DI 16,384, DS 16) and, in the backward, recomputes one
+    chunk at a time under autograd from its entering h, the last chunk
+    first, carrying the gradient of that h back to the chunk before: the
+    role ``jax.grad`` of the JAX ``associative_scan`` plays, in plain
+    PyTorch. ``apply(dt, dtx, Bm, Cm, A, chunk)`` -> (y, last h); the
+    forward's values are the loop's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, dt, dtx, Bm, Cm, A, chunk):
+        entries = []
+        y, h = _mamba_scan(dt, dtx, Bm, Cm, A, chunk, entries)
+        ctx.save_for_backward(dt, dtx, Bm, Cm, A, *entries)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        dt, dtx, Bm, Cm, A, *entries = ctx.saved_tensors
+        S, chunk = dt.shape[1], ctx.chunk
+        parts = [[], [], [], []]  # dt, dtx, Bm, Cm, the last chunk first
+        gA, carry = None, gh
+        for i in reversed(range(len(entries))):
+            c0, c1 = i * chunk, min(S, (i + 1) * chunk)
+            with torch.enable_grad():
+                ins = [t[:, c0:c1].detach().requires_grad_(True) for t in (dt, dtx, Bm, Cm)]
+                a = A.detach().requires_grad_(True)
+                h0 = entries[i].detach().requires_grad_(True)
+                y, h1 = _scan_chunk(*ins, a, h0)
+                outs = [(o, g) for o, g in ((y, None if gy is None else gy[:, c0:c1]),
+                                            (h1, carry)) if g is not None]
+                grads = torch.autograd.grad([o for o, _ in outs], ins + [a, h0],
+                                            [g for _, g in outs], allow_unused=True)
+            for part, g, t in zip(parts, grads[:4], ins):
+                part.append(torch.zeros_like(t) if g is None else g)
+            if grads[4] is not None:
+                gA = grads[4] if gA is None else gA + grads[4]
+            carry = grads[5]
+        cat = [torch.cat(part[::-1], dim=1) for part in parts]
+        return (*cat, gA, None)
 
 
 def mamba_apply(p, x, cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
@@ -523,9 +580,10 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
     ``state`` = (conv state (B, d_conv - 1, DI), SSM state (B, DI, DS)
     float32) for a decode step (S == 1): ``h = ssm[:, None] * decay +
     drive``, the JAX line. With ``state=None`` the whole sequence is
-    scanned from zeros in chunks of ``chunk`` positions (default
-    ``MAMBA_CHUNK`` = 128: one chunk's float32 (B, L, DI, DS) array is 537
-    MB at Jamba-1.5-Large's serving shape, B 4, DI 16,384, DS 16); nothing
+    scanned from zeros by :class:`MambaScan` in chunks of ``chunk``
+    positions (default ``MAMBA_CHUNK`` = 128: one chunk's float32 (B, L,
+    DI, DS) array is 537 MB at Jamba-1.5-Large's serving shape, B 4, DI
+    16,384, DS 16); nothing
     of shape (B, S, DI, DS) is allocated. The JAX function runs
     ``jax.lax.associative_scan`` over the whole sequence instead: the same
     recurrence, summed in another order.
@@ -550,7 +608,7 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
     xf = xs.float()
     dtx = dt * xf
     if state is None:
-        y, h = _mamba_scan(dt, dtx, Bm, Cm, A, chunk)
+        y, h = MambaScan.apply(dt, dtx, Bm, Cm, A, chunk)
     else:
         decay = torch.exp(dt[..., None] * A)
         drive = dtx[..., None] * Bm[:, :, None, :]

@@ -78,6 +78,31 @@ def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
     return lr
 
 
+# The update runs over each leaf in flat slices of at most CHUNK[device
+# type] elements: ``one()`` makes about a dozen float32 temporaries of what
+# it is given, 3.2 GB each for one of Jamba-1.5-Large's (4, 8,192, 24,576)
+# expert weights. On the CPU a temporary under the allocator's mmap
+# threshold (32 MB) reuses memory instead of faulting in fresh pages. On
+# the card more slices cost more launches: Jamba's lane layout (4.67 B
+# bfloat16 weights and state) updates in 442 ms in slices of 2^26 and in
+# 518 ms in slices of 2^22 (tools/adamw_slices.py on an H100 80GB HBM3 at
+# 700 W). Every operation of ``one()`` is elementwise, so the slices give
+# the same bits as the whole leaf.
+CHUNK = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+
+def _slices(p, g, mo, vo):
+    """(p, g, m, v) of one leaf cut into flat slices of at most
+    CHUNK[device type] elements, those of p, m and v views to write the
+    update through; the whole leaf where p, m or v is not contiguous."""
+    chunk = CHUNK.get(p.device.type)
+    if chunk is None or p.numel() <= chunk or not all(
+            t.is_contiguous() for t in (p, mo, vo)):
+        return [(p, g, mo, vo)]
+    flat = (p.view(-1), g.reshape(-1), mo.view(-1), vo.view(-1))
+    return [tuple(t[i:i + chunk] for t in flat) for i in range(0, p.numel(), chunk)]
+
+
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable
@@ -143,12 +168,13 @@ def adamw(
     def update_(grads, state, params):
         step, scale, bc1, bc2, lr_t = scalars(grads, state)
         with torch.no_grad():
-            for p, g, mo, vo in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                                    leaves(state["v"])):
-                np_, nm, nv = one(p, g, mo, vo, scale, bc1, bc2, lr_t)
-                p.copy_(np_)
-                mo.copy_(nm)
-                vo.copy_(nv)
+            for leaf in zip(leaves(params), leaves(grads), leaves(state["m"]),
+                            leaves(state["v"])):
+                for p, g, mo, vo in _slices(*leaf):
+                    np_, nm, nv = one(p, g, mo, vo, scale, bc1, bc2, lr_t)
+                    p.copy_(np_)
+                    mo.copy_(nm)
+                    vo.copy_(nv)
             state["step"].copy_(step)
         return params, state
 

@@ -697,6 +697,12 @@ def _close(got, want, tol, name):
     (1, 77, 77, 16, 2, 16, True),  # GQA 8 at hd 16, ragged tiles
     (1, 130, 200, 4, 2, 32, True),  # hd 32, T > S, neither a multiple of a tile
     (1, 150, 90, 4, 1, 32, True),  # hd 32, S > T, neither a multiple of a tile
+    (1, 1500, 1500, 12, 12, 64, False),  # Whisper-small's encoder
+    (1, 448, 1500, 12, 12, 64, False),  # its cross-attention over the 448-token context
+    (1, 2304, 2304, 14, 2, 64, True),  # InternVL2-1B: GQA 7, 256 patches + 2,048 tokens
+    (1, 512, 512, 16, 8, 64, True),  # Granite-MoE-1B
+    (1, 512, 512, 32, 2, 128, True),  # ChatGLM3-6B: GQA 16
+    (1, 512, 512, 64, 8, 128, True),  # Qwen2-72B and Jamba-1.5-Large
 ])
 def test_flash_attention_bwd_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal):
     from repro_torch.kernels.flash_attention import (
