@@ -136,11 +136,16 @@ Phases, each of which must pass (any failure exits non-zero):
     ``replay_ref`` bit for bit (every call of (b) and (c) against the CPU
     lanes' on the same inputs, W = 1 chains, one page hammered, writes,
     pages twice in a window, an empty replay; and, run by spawned processes
-    beside the phase, the first launch of (d) with more than one block of
-    replays, the first replay of (g) whole, and a launch of the first 4,000
-    events of each of (g)'s 13 replays at their real sizes, repeated 10
-    times bit-identical); its bound is the serial chain, with the latency of
-    a dependent load and of a dependent float64 add measured in the run;
+    beside the phase, the first launch of (d) with more replays than the
+    card has SMs (one warp a replay), the first replay of (g) whole, a
+    launch of the first 4,000 events of each of (g)'s 13 replays at their
+    real sizes, repeated 10 times bit-identical, an adversarial launch (a
+    window of 80 and twelve of one event as in (g), windows of 2, 31, 32,
+    33 and 1,000, pages repeated 1-100 events back) and a launch of more
+    replays than SMs); the pre-pass against its plain version; its bound
+    is the float64 chain, with the latency of a one-event window and of a
+    shuffle step measured in the run, the old load-based chain beside it,
+    and the pre-pass and walker timed apart;
     (b) ``calibrate``, CPU
     lane == CUDA lane, residuals below 0.15; (c) the fidelity quick
     contract, CPU lane == CUDA lane; (d) the fidelity experiment at its
@@ -438,30 +443,39 @@ def _cuda_events(prof) -> list:
     return out
 
 
-def profiled_ms(fn, *kernels: str, calls: int = 20):
+def profiled_ms(fn, *kernels: str, calls: int = 20, tries: int = 3):
     """Device milliseconds of one call of ``fn`` spent in kernels whose name
     holds one of ``kernels`` (none named: all the call's device work), by
     the profiler, over ``calls`` calls after one warm-up call. With kernels
     named, the total is divided by the launches of the first one that the
     trace holds (one a call): the trace can miss launches, and dividing by
-    ``calls`` would then read low. A count other than ``calls`` is logged;
-    with none found the result is None."""
+    ``calls`` would then read low. A count other than ``calls`` is logged.
+    A trace that holds no such event at all (the profiler drops a whole
+    trace now and then) is taken again, up to ``tries`` times; with none
+    found the result is None, never 0."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = [(name, us) for name, us in _cuda_events(prof)
-             if not kernels or any(k in name for k in kernels)]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        found = [(name, us) for name, us in _cuda_events(prof)
+                 if not kernels or any(k in name for k in kernels)]
+        n = sum(kernels[0] in name for name, _ in found) if kernels else calls
+        if found and n:
+            break
+        log(f"   profiler: no device event of {kernels[0] if kernels else 'the call'}"
+            " in the trace")
+    if not (found and n):
+        return None
     us = sum(us for _, us in found)
-    n = sum(kernels[0] in name for name, _ in found) if kernels else calls
     if n != calls:
         log(f"   profiler: {n} launches of {kernels[0]} in the trace of {calls} calls")
-    return us / 1e3 / n if n else None
+    return us / 1e3 / n
 
 
 def host_ms_per_call(fn, calls: int = 200) -> float:
@@ -1339,7 +1353,8 @@ def time_migrate(dev, capture: dict) -> dict:
                     "plain_ms": plain_ms, "bound_ms": bound,
                     "gb_per_s": n * page_b / device_ms / 1e6 if device_ms else None,
                     "copy_engine_ms": ce_ms, "copy_engine_device_ms": ce_device_ms,
-                    "copy_engine_gb_per_s": n * page_b / ce_device_ms / 1e6}
+                    "copy_engine_gb_per_s": (n * page_b / ce_device_ms / 1e6
+                                             if ce_device_ms else None)}
     di = capture["promote"][0]
     out["host_ms"] = host_ms_per_call(
         lambda: migrate_pages(kv.hbm, kv.host, di[:1], capture["promote"][1][:1]))
@@ -3908,7 +3923,7 @@ BALANCED_BOUND = 0.60
 TIMING_FULL_FRAC = 0.75  # the real-size timing lane: phase 4's trace, TPP
 REPLAY_PREFIX = 4_000  # events of each real-size replay in the prefix launch
 REPLAY_REPEATS = 10
-REPLAY_BLOCK = 128  # replays a block of csrc/timing_replay.cu (kThreads)
+ADVERSARIAL_EVENTS = 6_000  # events of each replay of the adversarial launch
 PLAIN_WORKERS = 6  # spawned processes running replay_ref beside the phase
 F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 
@@ -4136,15 +4151,23 @@ def replay_launch(replays: list):
 
 def replay_cost(args) -> dict:
     """Bytes, float64 operations and the bound of one launch of
-    ``timing_replay``. Bytes: events read once (page 4, tier 1, occ 8, lat 8),
-    the per-replay arrays, ``page_done`` zeroed (8 a page a replay), t_app
-    written; ``ready`` is this design's scratch and not counted. Operations:
-    about 6 float64 an event (2 adds, 2 subtracts, 2 maxima) at the card's
-    rate, and the serial chain (windows x a dependent load + events x a
-    dependent float64 add, the longest replay) with both links measured now
-    by ``chain_latency_ns`` over the launch's largest ``n_pages``. The bound
-    is the largest of the three; the chain counts as operations."""
-    from repro_torch.kernels.timing_replay import chain_bound_ms, chain_latency_ns
+    ``timing_replay``. Bytes: each input read once (an event's page 4,
+    tier 1, occ 8, lat 8; a replay's offset, window, preload and page
+    count) and t_app written; the pre-pass's outputs and ``done`` are this
+    design's scratch and not counted. Operations: about 9 float64 an event
+    (the pre-pass's add, subtract and min; the walker's subtract and add of
+    the writer term, the channel's add and max, + c and + lat) at the
+    card's rate, and the serial chain (each window one one-event window
+    chain, a wider one also its t - dm and log2 of its lanes in shuffle
+    steps, the longest replay) with the links measured now by
+    ``chain_latency_ns`` over the launch's largest ``n_pages``. The bound
+    is the largest of the three; the chain counts as operations. The old
+    load-based chain (a dependent load a window) is printed beside it."""
+    from repro_torch.kernels.timing_replay import (
+        chain_bound_ms,
+        chain_latency_ns,
+        chain_ms_with_loads,
+    )
     from repro_torch.roofline import HW
 
     page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
@@ -4152,8 +4175,8 @@ def replay_cost(args) -> dict:
     n_rep = w_slots.numel()
     sizes = (ev_off[1:] - ev_off[:-1]).cpu()
     windows = (sizes + w_slots.cpu() - 1) // w_slots.cpu()
-    bytes_moved = n_ev * 21 + n_rep * (8 * 4 + 16) + n_rep * 8 + int(n_pages.sum()) * 8
-    ops = 6 * n_ev
+    bytes_moved = n_ev * 21 + n_rep * (8 * 4 + 16) + n_rep * 8
+    ops = 9 * n_ev
     links = chain_latency_ns(int(n_pages.max()), page.device)
     bytes_ms = bytes_moved / HW.hbm_bw * 1e3
     chain_ms = chain_bound_ms(ev_off, w_slots, links)
@@ -4161,8 +4184,84 @@ def replay_cost(args) -> dict:
     return {"events": n_ev, "replays": n_rep, "windows": int(windows.sum()),
             "bytes": bytes_moved, "f64_ops": ops, **links,
             "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+            "chain_ms_with_loads": chain_ms_with_loads(ev_off, w_slots, links),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def near_writers(writer, ev_off, w_slots) -> torch.Tensor:
+    """bool ``[N]``: the events whose writer the walker of
+    ``csrc/timing_replay.cu`` takes from its recent done values (the two
+    chunks before the event's chunk, or its own chunk) and not from a load
+    issued two chunks ahead. Its chunks are 32 events of a window, or of
+    the whole replay where windows are one event."""
+    import torch
+
+    near = torch.zeros(writer.numel(), dtype=torch.bool, device=writer.device)
+    off = ev_off.tolist()
+    for r, w in enumerate(w_slots.tolist()):
+        e0, e1 = off[r], off[r + 1]
+        n = e1 - e0
+        if n == 0:
+            continue
+        cw = n if w == 1 else w
+        idx = torch.arange(n, device=writer.device)
+        start = idx // cw * cw + idx % cw // 32 * 32
+        starts, chunk = torch.unique_consecutive(start, return_inverse=True)
+        first = torch.where(chunk >= 2, starts[(chunk - 2).clamp(min=0)], 0)
+        wr = writer[e0:e1].to(torch.int64) - e0
+        near[e0:e1] = (wr >= 0) & (wr >= first)
+    return near
+
+
+def replay_split(args, repeats: int) -> dict:
+    """The pre-pass and the walker of one launch timed apart (CUDA events,
+    medians of ``repeats``), and the share of events whose writer the
+    walker takes from its recent done values rather than a load issued
+    ahead (``near_writers``)."""
+    from repro_torch.kernels.timing_replay import replay_prepass, replay_walk
+
+    page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
+    prep = replay_prepass(page, tier, occ, ev_off, w_slots, n_pages)
+    prepass_ms = cuda_ms(lambda: replay_prepass(page, tier, occ, ev_off, w_slots, n_pages),
+                         repeats=repeats, warmup=1)
+    walk_ms = cuda_ms(lambda: replay_walk(prep, tier, lat, ev_off, w_slots, chan),
+                      repeats=repeats, warmup=1)
+    writer = prep[0].cpu()
+    del prep
+    n = max(1, writer.numel())
+    return {"prepass_ms": prepass_ms, "walk_ms": walk_ms,
+            "writer_share": float((writer >= 0).sum()) / n,
+            "near_writer_share": float(near_writers(writer, ev_off.cpu(), w_slots.cpu()).sum())
+            / n}
+
+
+def adversarial_launch(dev, windows, seed: int, events: int = ADVERSARIAL_EVENTS) -> tuple:
+    """One launch of seeded replays (numpy), one a window size in
+    ``windows``, of ``events`` events each (an empty replay where the size
+    is 0): few pages, and a third of the events repeating the
+    page of an event 1-100 before it, so writers fall within the walker's
+    prefetch distance and beyond it; both tiers, write-sized occupancies."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    reps = []
+    for w in windows:
+        n = events if w else 0
+        n_pages = int(rng.integers(2, 4 * events))
+        page = rng.integers(0, n_pages, size=n)
+        back = rng.integers(1, 101, size=n)
+        for j in np.flatnonzero((rng.random(n) < 0.3) & (np.arange(n) >= back)):
+            page[j] = page[j - back[j]]
+        reps.append((torch.from_numpy(page.astype(np.int32)).to(dev),
+                     torch.from_numpy(rng.integers(0, 2, size=n).astype(np.int8)).to(dev),
+                     torch.from_numpy(rng.random(n) * rng.choice([1e-9, 5e-8], size=n)).to(dev),
+                     torch.from_numpy(rng.random(n) * 3e-7).to(dev),
+                     torch.tensor([max(w, 1)], dtype=torch.int64, device=dev),
+                     torch.from_numpy(rng.random((1, 2)) * 1e-6).to(dev),
+                     torch.tensor([n_pages], dtype=torch.int64, device=dev)))
+    return replay_launch(reps)
 
 
 def sub_launch(args, lo: int, hi: int) -> tuple:
@@ -4289,9 +4388,10 @@ def replay_checks(dev, card_calls: list, cpu_calls: list, plain: PlainReplays,
     device, must be equal too), synthetic edge cases (W = 1 chains, one
     page hammered, writes, pages twice in a window, an empty replay between
     others), the main path's launches that ``plain`` replayed beside the
-    phase (a fidelity launch over several blocks, a whole real-size replay,
-    the real-size prefix launch), and ``REPLAY_REPEATS`` identical launches
-    of the prefix launch ``prefix`` = (arguments, result)."""
+    phase (a fidelity launch over more blocks than SMs, a whole real-size
+    replay, the real-size prefix launch, the adversarial launch and the
+    launch of more replays than SMs), and ``REPLAY_REPEATS`` identical
+    launches of the prefix launch ``prefix`` = (arguments, result)."""
     import dataclasses
 
     import numpy as np
@@ -4422,7 +4522,7 @@ def timing_full(dev, trace) -> tuple:
               f"interval {i}: t_app {iv['t_app']} below its channel occupancy {floor}")
         check(iv["t_app"] == float(t_app[r]), f"interval {i}: t_app not the kernel's")
         r += 1
-    cost = replay_cost(args)
+    cost = {**replay_cost(args), **replay_split(args, repeats=3)}
     row = {"pages": trace.rss_pages, "intervals": len(trace), "fm_frac": TIMING_FULL_FRAC,
            "wall_s": wall_s, "replay_s": rec.seconds,
            "host_schedule_and_build_s": wall_s - rec.seconds,
@@ -4431,15 +4531,14 @@ def timing_full(dev, trace) -> tuple:
            "w_slots": w_slots.tolist(), "launches": launches,
            "total_time_s": payload["total_time"],
            "migrations": payload["migrations"],
-           "page_done_bytes": int(n_pages.sum()) * 8, **cost}
+           "done_bytes": int(page.numel()) * 8, **cost}
     return row, (args, t_app)
 
 
 def prefix_launch(args) -> tuple:
     """The first REPLAY_PREFIX events of every replay of one launch, each
     with its own real ``n_pages``, window and preload, launched together
-    on the card: several real-size ``page_done`` rows at distinct offsets.
-    Returns (arguments, result)."""
+    on the card. Returns (arguments, result)."""
     from repro_torch.kernels.timing_replay import timing_replay
 
     page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
@@ -4565,6 +4664,16 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
         plain.submit(f"the first {REPLAY_PREFIX} events of each of {got.numel()} "
                      "real-size replays, one launch", *prefix, chunk=1)
         del args, got
+        # the adversarial launch: (g)'s window sizes, the narrow and wide
+        # window classes, writers 1-100 events back, an empty replay
+        adv = adversarial_launch(dev, (80,) + (1,) * 12 + (2, 31, 32, 33, 1_000, 0), seed=28)
+        plain.submit("the adversarial launch", adv, timing_replay(*adv), chunk=1)
+        sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        many = adversarial_launch(dev, [(1, 2, 31, 32, 33, 80)[k % 6] for k in range(2 * sm + 1)],
+                                  seed=29, events=600)
+        plain.submit(f"a launch of {2 * sm + 1} replays ({sm} SMs)", many, timing_replay(*many),
+                     chunk=-(-(2 * sm + 1) // PLAIN_WORKERS))
+        del adv, many
         seconds["timing_full_s"] = time.perf_counter() - t
 
         # --- (d) the fidelity experiment at its defaults, on the card; its
@@ -4573,7 +4682,7 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
         t = time.perf_counter()
         victim_partition.launches = 0
         timing_replay.launches = 0
-        with ReplayRecorder(min_replays=REPLAY_BLOCK) as fid_rec:
+        with ReplayRecorder(min_replays=sm) as fid_rec:
             fid = fidelity_run(traces, cal, dev)
         out["fidelity"] = fid
         out["launches_fidelity"] = victim_partition.launches
@@ -4581,8 +4690,8 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
         check(out["launches_timing_replay"] > 0, "the fidelity path never launched timing_replay")
         check(out["launches_fidelity"] > 0, "the fidelity model lane never launched "
               "victim_partition")
-        check(len(fid_rec.calls) == 1, f"no fidelity launch spans more than {REPLAY_BLOCK} "
-              "replays")
+        check(len(fid_rec.calls) == 1, f"no fidelity launch spans more blocks than the "
+              f"card's {sm} SMs")
         args, got, _ = fid_rec.calls[0]
         plain.submit(f"a fidelity launch of {got.numel()} replays", args, got,
                      chunk=-(-got.numel() // PLAIN_WORKERS))
@@ -4628,7 +4737,17 @@ def timing_phase(dev, traces: dict, full_trace) -> dict:
     args = quick_rec.calls[k][0]
     ms = cuda_ms(lambda: timing_replay(*args), repeats=10, warmup=1)
     plain_ms = quick_cpu_rec.calls[k][2] * 1e3
-    out["replay_timed"] = {"ms": ms, "plain_ms": plain_ms, **replay_cost(args)}
+    out["replay_timed"] = {"ms": ms, "plain_ms": plain_ms, **replay_cost(args),
+                           **replay_split(args, repeats=10)}
+    # the pre-pass on the card against its plain version, on the same launch
+    from repro_torch.kernels.timing_replay import replay_prepass
+
+    page, tier, occ, _, ev_off, w_slots, _, n_pages = args
+    got = replay_prepass(page, tier, occ, ev_off, w_slots, n_pages)
+    want = replay_prepass(*[a.cpu() for a in (page, tier, occ, ev_off, w_slots, n_pages)])
+    check(all(a.dtype == b.dtype and torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+          "the pre-pass on the card differs from writer_index_ref / window_prefix_ref")
+    out["replay_checks"]["prepass_events"] = page.numel()
     seconds["replay_checks_s"] = time.perf_counter() - t
     torch.cuda.empty_cache()
     return out
@@ -5993,11 +6112,14 @@ def main() -> int:
         "launches_full_size": tm["timing_full"]["launches"],
         "max_abs_err": tm["replay_checks"]["max_abs_err"],
         **{k: tm["replay_timed"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "events", "replays")},
+                                              "events", "replays", "prepass_ms", "walk_ms",
+                                              "chain_ms_with_loads")},
         "library_ms": None,
         "full_size_ms": tm["timing_full"]["replay_s"] * 1e3,
         "full_size_events": tm["timing_full"]["events"],
         "full_size_bound_ms": tm["timing_full"]["bound_ms"],
+        **{"full_size_" + k: tm["timing_full"][k] for k in ("prepass_ms", "walk_ms",
+                                                           "chain_ms_with_loads")},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",

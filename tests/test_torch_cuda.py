@@ -600,9 +600,9 @@ def test_timing_replay_empty_replay_ends_at_its_preload(cuda):
 
 
 def test_timing_replay_spans_blocks(cuda):
-    """300 replays, three blocks of the kernel: each replay's row of
-    ``page_done`` and of ready times at its own offset, equal to the plain
-    version replay by replay."""
+    """300 replays, more than the card's SMs: one warp (one block) a
+    replay, each replay's events and per-event done times at their own
+    offsets, equal to the plain version replay by replay."""
     from repro_torch.kernels.timing_replay import timing_replay
 
     base = _streams(cuda)
@@ -614,17 +614,88 @@ def test_timing_replay_spans_blocks(cuda):
                                      lat=ev.lat[:n], scale=ev.scale, n_pages=ev.n_pages),
                         w, chan))
     args = _launch_args(streams, cuda)
+    assert args[5].numel() > torch.cuda.get_device_properties(cuda).multi_processor_count
     got = timing_replay(*args).cpu().tolist()
     assert got == timing_replay(*[x.cpu() for x in args]).tolist()
 
 
+def _adversarial(dev, seed=0):
+    """One launch of seeded streams (numpy): windows of 1, 2, 31, 32, 33,
+    80 and 1,000 events, pages repeated at every distance from 1 to 100
+    events (writers within and beyond the walker's prefetch distance), both
+    tiers, write-sized occupancies, and an empty replay last."""
+    rng = np.random.default_rng(seed)
+    reps, windows = [], []
+    for w, n, n_pages in ((1, 4_000, 3), (1, 6_000, 50), (1, 3_000, 2_000), (2, 3_000, 40),
+                          (31, 4_000, 300), (32, 4_000, 64), (33, 4_000, 1_000),
+                          (80, 8_000, 600), (1_000, 5_000, 900), (7, 0, 1)):
+        page = rng.integers(0, n_pages, size=n)
+        near = rng.random(n) < 0.3  # a third of the events repeat a page 1-100 back
+        back = rng.integers(1, 101, size=n)
+        for j in np.flatnonzero(near & (np.arange(n) >= back)):
+            page[j] = page[j - back[j]]
+        reps.append((page.astype(np.int32), rng.integers(0, 2, size=n).astype(np.int8),
+                     rng.random(n) * rng.choice([1e-9, 5e-8], size=n), rng.random(n) * 3e-7,
+                     n_pages, rng.random(2) * 1e-6))
+        windows.append(w)
+    sizes = [r[0].size for r in reps]
+    return (torch.from_numpy(np.concatenate([r[0] for r in reps])).to(dev),
+            torch.from_numpy(np.concatenate([r[1] for r in reps])).to(dev),
+            torch.from_numpy(np.concatenate([r[2] for r in reps])).to(dev),
+            torch.from_numpy(np.concatenate([r[3] for r in reps])).to(dev),
+            torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int64, device=dev),
+            torch.tensor(windows, dtype=torch.int64, device=dev),
+            torch.tensor(np.array([r[5] for r in reps]), dtype=torch.float64, device=dev),
+            torch.tensor([r[4] for r in reps], dtype=torch.int64, device=dev))
+
+
+def test_timing_prepass_matches_plain(cuda):
+    """The pre-pass on the card (writer index, window prefix sums) equals
+    its plain version bit for bit, on the engine's streams and the
+    adversarial ones."""
+    from repro_torch.kernels.timing_replay import replay_prepass
+
+    for args in (_launch_args(_streams(cuda), cuda), _adversarial(cuda)):
+        page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
+        got = replay_prepass(page, tier, occ, ev_off, w_slots, n_pages)
+        want = replay_prepass(*[x.cpu() for x in (page, tier, occ, ev_off, w_slots, n_pages)])
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_timing_replay_adversarial_windows(cuda):
+    """Windows of every width class and writers at every distance from 1 to
+    100 events: the kernel equals the plain version bit for bit, repeats
+    bit for bit, and the empty replay ends at its preload."""
+    from repro_torch.kernels.timing_replay import replay_prepass, timing_replay
+
+    args = _adversarial(cuda, seed=1)
+    page, tier, occ, lat, ev_off, w_slots, chan, n_pages = args
+    writer = replay_prepass(page, tier, occ, ev_off, w_slots, n_pages)[0].cpu()
+    back = torch.arange(writer.numel()) - writer
+    # writers in the event's chunk of 32 or the one before (near), and
+    # more than three chunks back (beyond the walker's prefetch distance)
+    assert ((writer >= 0) & (back <= 32)).any() and ((writer >= 0) & (back > 96)).any()
+    got = timing_replay(*args)
+    want = timing_replay(*[x.cpu() for x in args])
+    assert got.cpu().tolist() == want.tolist()
+    assert got[-1].item() == chan[-1].max().item()
+    for _ in range(3):
+        assert torch.equal(timing_replay(*args), got)
+
+
 def test_chain_latency_is_measured(cuda):
+    """The chain's links, among them the walker's one-event window (two
+    dependent float64 adds and a max) and a shuffle step."""
     from repro_torch.kernels.timing_replay import chain_latency_ns
 
     for n in (4_096, 3_250_585):
         links = chain_latency_ns(n, cuda)
-        assert set(links) == {"load_ns", "f64_add_ns"}
+        assert set(links) == {"load_ns", "f64_add_ns", "window_chain_ns", "shfl_step_ns"}
         assert 0.0 < links["f64_add_ns"] < links["load_ns"] < 1e5
+        assert 2 * links["f64_add_ns"] < links["window_chain_ns"] < 1e3
+        assert 0.0 < links["shfl_step_ns"] < 1e3
+    assert links["window_chain_ns"] < links["load_ns"]  # the load left the chain
 
 
 def test_timing_runner_on_the_card_equals_the_cpu(cuda):

@@ -44,7 +44,7 @@ FID_TRACES = {
 }
 FID_FRACS = (1.0, 0.6, 0.3)
 # the serial chain's links, which only the card can time (replay_cost)
-LINKS = {"load_ns": 500.0, "f64_add_ns": 5.0}
+LINKS = {"load_ns": 500.0, "f64_add_ns": 5.0, "window_chain_ns": 30.0, "shfl_step_ns": 20.0}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -184,14 +184,15 @@ def test_timing_lane_real_size_checks_run_on_a_small_trace(smoke, on_cpu, monkey
     """Phase 12 (g) on a small trace: conservation and the channel floor hold
     and every interval is replayed; the prefix launch takes each replay's
     first REPLAY_PREFIX events. Only the launch count (the CPU path
-    launches nothing) cannot pass here, and the chain's links, which only
-    the card can time, are fixed."""
+    launches nothing) cannot pass here; the chain's links and the pre-pass
+    and walker timed apart, which only the card can measure, are fixed."""
     import repro_torch.kernels.timing_replay as kernel
 
     fails = []
     monkeypatch.setattr(smoke, "check", lambda c, msg: c or fails.append(msg))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(kernel, "chain_latency_ns", lambda n, dev: LINKS)
+    monkeypatch.setattr(smoke, "replay_split", lambda args, repeats: {"walk_ms": 1.0})
     from repro_torch.sim.workloads import thrash_trace
 
     tr = thrash_trace(rss_pages=6_000, n_intervals=4)
@@ -199,6 +200,7 @@ def test_timing_lane_real_size_checks_run_on_a_small_trace(smoke, on_cpu, monkey
     assert fails == ["the real-size timing lane launched timing_replay 0 times, not once"]
     assert row["intervals"] == len(tr) and row["replays"] == len(tr) == t_app.numel()
     assert row["chain_ms"] > 0 and row["bound_ms"] >= row["chain_ms"]
+    assert row["chain_ms_with_loads"] > row["chain_ms"] and row["walk_ms"] == 1.0
     launch, got = smoke.prefix_launch(args)
     sizes = [min(smoke.REPLAY_PREFIX, e) for e in row["events_per_interval"] if e]
     assert launch[4].tolist() == np.concatenate([[0], np.cumsum(sizes)]).tolist()
@@ -225,9 +227,10 @@ def test_fig1_full_uses_one_pass_per_kind(smoke, on_cpu):
 
 
 def test_replay_cost_counts_the_stream(smoke, monkeypatch):
-    """Bytes (events, per-replay arrays, ``page_done`` zeroed, t_app) and
-    the bound: the longest replay's chain at the links measured on the card
-    (fixed here), past the bytes' time, so counted as operations."""
+    """Bytes (events, per-replay arrays, t_app) and the bound: the longest
+    replay's chain at the links measured on the card (fixed here), each
+    window one window chain plus its t - dm and shuffle steps, past the bytes' time,
+    so counted as operations; the old load-based chain beside it."""
     import repro_torch.kernels.timing_replay as kernel
 
     monkeypatch.setattr(kernel, "chain_latency_ns", lambda n, dev: LINKS)
@@ -238,9 +241,14 @@ def test_replay_cost_counts_the_stream(smoke, monkeypatch):
             torch.tensor([5, 5]))
     cost = smoke.replay_cost(args)
     assert (cost["events"], cost["replays"], cost["windows"]) == (10, 2, 4)
-    assert cost["bytes"] == 10 * 21 + 2 * 48 + 2 * 8 + 10 * 8
-    chain = max(2 * LINKS["load_ns"] + 4 * LINKS["f64_add_ns"],
-                2 * LINKS["load_ns"] + 6 * LINKS["f64_add_ns"]) / 1e6
+    assert cost["bytes"] == 10 * 21 + 2 * 48 + 2 * 8
+    # two windows of 2 events (t - dm and one shuffle step each), two of 3
+    # (t - dm and two steps each)
+    wide = LINKS["window_chain_ns"] + LINKS["f64_add_ns"]
+    chain = max(2 * (wide + LINKS["shfl_step_ns"]), 2 * (wide + 2 * LINKS["shfl_step_ns"])) / 1e6
     assert cost["chain_ms"] == pytest.approx(chain) == cost["bound_ms"]
     assert cost["bound_by"] == "operations"
+    with_loads = max(2 * LINKS["load_ns"] + 4 * LINKS["f64_add_ns"],
+                     2 * LINKS["load_ns"] + 6 * LINKS["f64_add_ns"]) / 1e6
+    assert cost["chain_ms_with_loads"] == pytest.approx(with_loads)
 

@@ -34,6 +34,7 @@ from repro.timing import timing_runner as ref_timing_runner
 from repro_torch.kernels.timing_replay import (
     chain_bound_ms,
     chain_latency_ns,
+    chain_ms_with_loads,
     replay_ref,
     timing_replay,
 )
@@ -419,7 +420,7 @@ def _two_replays():
 @pytest.mark.parametrize("fault", ["offset_start", "offset_end", "offset_falls",
                                    "page_above", "page_negative"])
 def test_timing_replay_refuses_bad_offsets_and_pages(fault):
-    """The kernel indexes ``page_done[page]`` unchecked, so the wrapper
+    """The kernels index by page and event unchecked, so the wrapper
     refuses offsets that do not partition the events and pages outside
     their replay's ``n_pages``, on either device, before any launch."""
     args = _two_replays()
@@ -440,15 +441,33 @@ def test_timing_replay_refuses_bad_offsets_and_pages(fault):
         timing_replay(*args)
 
 
-def test_chain_bound_counts_windows_and_events():
-    """The serial-chain bound of a launch: the longest replay's windows x
-    the dependent load + its events x the dependent float64 add."""
-    ev_off = torch.tensor([0, 10, 10, 17])
-    w_slots = torch.tensor([3, 2, 1])
-    links = {"load_ns": 100.0, "f64_add_ns": 4.0}
-    # replay 0: 4 windows, 10 events; replay 1: none; replay 2: 7 and 7
-    assert chain_bound_ms(ev_off, w_slots, links) == (7 * 100.0 + 7 * 4.0) / 1e6
-    assert chain_bound_ms(ev_off[:2], w_slots[:1], links) == (4 * 100.0 + 10 * 4.0) / 1e6
+LINKS = {"load_ns": 100.0, "f64_add_ns": 4.0, "window_chain_ns": 20.0, "shfl_step_ns": 7.0}
+
+
+@pytest.mark.parametrize("ev_off, w_slots, bound_ns, with_loads_ns", [
+    # replay 0: 3 windows of 3 (t - dm and 2 shuffle steps each) and one of
+    # 1, 10 events; replay 1: none; replay 2: 7 one-event windows
+    ([0, 10, 10, 17], [3, 2, 1], 7 * 20.0, 7 * 100.0 + 7 * 4.0),
+    ([0, 10], [3], 3 * (20.0 + 4.0 + 2 * 7.0) + 20.0, 4 * 100.0 + 10 * 4.0),
+    # windows of 80 and their last 20: 5 shuffle steps each (32 lanes)
+    ([0, 180], [80], 3 * (20.0 + 4.0 + 5 * 7.0), 3 * 100.0 + 180 * 4.0),
+    # two windows of 32, of 33 and of 31 (5 shuffle steps each), three of
+    # 2 (one step each), one of 17 (5)
+    ([0, 64, 130, 192, 198, 215], [32, 33, 31, 2, 17],
+     2 * (20.0 + 4.0 + 5 * 7.0), 2 * 100.0 + 66 * 4.0),
+    ([0, 6], [2], 3 * (20.0 + 4.0 + 7.0), 3 * 100.0 + 6 * 4.0),
+    ([0, 0], [5], 0.0, 0.0),
+])
+def test_chain_bound_counts_windows_and_events(ev_off, w_slots, bound_ns, with_loads_ns):
+    """The serial-chain bound of a launch: the longest replay's windows,
+    each one window chain, a wider one also its t - dm and ceil(log2(lanes))
+    shuffle steps; beside it
+    the old load-based chain, windows x the dependent load + events x the
+    dependent float64 add."""
+    ev_off, w_slots = torch.tensor(ev_off), torch.tensor(w_slots)
+    assert chain_bound_ms(ev_off, w_slots, LINKS) == pytest.approx(bound_ns / 1e6, rel=1e-12)
+    assert chain_ms_with_loads(ev_off, w_slots, LINKS) == pytest.approx(
+        with_loads_ns / 1e6, rel=1e-12)
 
 
 def test_chain_latency_needs_the_card():
