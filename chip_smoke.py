@@ -1709,10 +1709,11 @@ def flash_bwd_checks(dev) -> float:
         # the layouts phase 14 trains: Whisper-small's encoder and its
         # cross-attention over the 448-token context, InternVL2-1B (GQA 7
         # over 256 patches + 2,048 tokens), Granite-MoE-1B, ChatGLM3-6B
-        # (GQA 16), Qwen2-72B and Jamba-1.5-Large
+        # (GQA 16), Qwen2-72B and Jamba-1.5-Large, DeepSeekMoE-16B (MHA)
         (1, 1500, 1500, 12, 12, 64, False), (1, 448, 1500, 12, 12, 64, False),
         (1, 2304, 2304, 14, 2, 64, True), (1, 512, 512, 16, 8, 64, True),
         (1, 512, 512, 32, 2, 128, True), (1, 512, 512, 64, 8, 128, True),
+        (1, 512, 512, 16, 16, 128, True),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, T, H, KV, hd, causal in cases:
@@ -5082,19 +5083,27 @@ def experiment_api(dev, card: str, phase4: dict, paper: dict, runsets: dict) -> 
 # Training on the card through repro_torch.launch.trainer.train: both
 # families at full width and depth, 4 sequences of 2,048 tokens a step,
 # remat="full", a transient failure injected at step TRAIN_FAIL_AT (the
-# retry path). The kernel-vs-plain gradient check, the remat check and the
-# resume check run at full width and GRAD_LAYERS layers.
+# retry path). The kernel-vs-plain gradient check and the remat check run
+# at full width and GRAD_LAYERS layers; the resume check at full depth.
 TRAIN_BATCH, TRAIN_LEN = 4, 2048
 TRAIN_STEPS, TRAIN_FAIL_AT = 6, 2
+TRAIN_SEED = 51
 GRAD_LAYERS = 2
-RESUME_STEPS, RESUME_AT = 4, 2
-# (f) the MoE, MLA, encoder-decoder, VLM and hybrid families, each trained
-# FAMILY_STEPS steps at full width, remat="full", with the same gradient and
-# remat checks at GRAD_LAYERS layers. The settings of each arch:
+RESUME_AT = 2
+# (d) writes its checkpoint to whichever of tempfile.gettempdir() and this
+# directory of the checkout (gitignored) has more free space, and fails
+# unless one holds CKPT_ROOM x the reckoned bytes
+CKPT_DIR = ".resume_ckpt"
+CKPT_ROOM = 1.25
+# (f) the MoE, MLA, remaining dense, encoder-decoder, VLM and hybrid
+# families, each trained FAMILY_STEPS steps at full width, remat="full",
+# with the same gradient and remat checks at GRAD_LAYERS layers. The
+# settings of each arch:
 #   trainer      driven through ``train`` (its data stream has no frames or
 #                patches); else make_train_fns' step on batches with the
 #                arch's frames or patches
 #   seq          tokens a sequence (TRAIN_LEN when absent)
+#   layers       trained at this many of its layers (all when absent)
 #   lane_layout  trained at LANE_OVERRIDES' layout and GRAD_LAYERS layers,
 #                not at full depth
 #   state        the AdamW state's dtype (float32 when absent)
@@ -5102,12 +5111,22 @@ RESUME_STEPS, RESUME_AT = 4, 2
 #                weights in host memory
 #   bwd_timed    (e) times the backward kernel at each layout the arch's
 #                gradient check gave flash_attention
-# Jamba-1.5-Large's lane layout (one attention and one Mamba block, the Mamba
-# block's FFN an MoE of 4 experts) has 4.67 B parameters: its bfloat16
-# weights and gradients with float32 AdamW state would take 56 GB before an
-# activation, so its state is bfloat16 (the JAX package's opt_state_dtype),
-# 37.4 GB; its float32 weights and gradients alone are 37.4 GB too, and its
-# float32 activations as many again, hence host_weights.
+# Weights and gradients in bfloat16 take 4 bytes a parameter and AdamW's
+# state 8 more in float32 or 4 in bfloat16 (``train_state_bytes``), before
+# an activation. Jamba-1.5-Large's lane layout (one attention and one Mamba
+# block, the Mamba block's FFN an MoE of 4 experts) has 4.67 B parameters:
+# 56 GB with float32 state, so its state is bfloat16 (the JAX package's
+# opt_state_dtype), 37.4 GB; its float32 weights and gradients alone are
+# 37.4 GB too, and its float32 activations as many again, hence
+# host_weights. DeepSeekMoE-16B (16.9 B parameters, 135 GB even with
+# bfloat16 state) trains 8 of its 28 layers, phase 15's serving depth: 5.12
+# B, 61.5 GB with float32 state. ChatGLM3-6B (6.24 B) trains all 28 layers
+# with bfloat16 state: 49.9 GB (74.9 with float32 state, which leaves no
+# room for its activations). Qwen2-72B trains 4 of its 80 layers with
+# bfloat16 state: 6.00 B, 48.0 GB (8 layers would be 76 GB); its gradient
+# check's float32 pass (4.25 B parameters, 17 GB of weights and as many of
+# gradients) peaks at 56 GB beside its bfloat16 weights under remat "full"
+# (``train_grads``), so it needs no host_weights.
 FAMILY_RUNS = {
     "granite-moe-1b-a400m": {"trainer": True},
     "minicpm3-4b": {"trainer": True},
@@ -5115,21 +5134,50 @@ FAMILY_RUNS = {
     "internvl2-1b": {"bwd_timed": True},
     "jamba-1.5-large-398b": {"lane_layout": True, "state": "bfloat16", "host_weights": True,
                              "bwd_timed": True},
+    "deepseek-moe-16b": {"layers": 8, "trainer": True, "bwd_timed": True},
+    "chatglm3-6b": {"state": "bfloat16", "bwd_timed": True},
+    "qwen2-72b": {"layers": 4, "state": "bfloat16", "bwd_timed": True},
 }
 FAMILY_STEPS = 3
 
 
 def family_cfg(name: str):
-    """``name``'s config as (f) trains it: full depth, or GRAD_LAYERS layers
-    at LANE_OVERRIDES' layout for a ``lane_layout`` arch."""
+    """``name``'s config as (f) trains it: full depth, its ``layers`` cut,
+    or GRAD_LAYERS layers at LANE_OVERRIDES' layout for a ``lane_layout``
+    arch."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
 
     cfg = get_config(name)
-    if FAMILY_RUNS[name].get("lane_layout"):
+    run = FAMILY_RUNS[name]
+    if run.get("lane_layout"):
         cfg = replace(cfg, num_layers=GRAD_LAYERS, **LANE_OVERRIDES[name])
+    elif "layers" in run:
+        cfg = replace(cfg, num_layers=run["layers"])
     return cfg
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors (meta tensors too)."""
+    from repro_torch.optim.adamw import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def train_state_bytes(cfg, state: str = "float32") -> int:
+    """What a training step of ``cfg`` holds before an activation: the
+    weights and their gradients (each in the weights' dtype) and AdamW's
+    ``m`` and ``v`` in ``state``, reckoned from the parameter shapes."""
+    import torch
+
+    from repro_torch.models import param_count
+    from repro_torch.models.transformer import param_shapes
+
+    shapes = param_shapes(cfg)
+    state_size = torch.empty((), dtype=getattr(torch, state)).element_size()
+    return 2 * tree_bytes(shapes) + 2 * state_size * param_count(shapes)
+
 
 def _leaf_copy(params, dtype=None):
     """A detached copy of a parameter tree (cast to ``dtype``), every
@@ -5211,7 +5259,7 @@ def train_run(name: str, dev) -> dict:
         c.launches = 0
     t = time.perf_counter()
     rep = train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
-                remat="full", seed=51, inject_failure_at=TRAIN_FAIL_AT)
+                remat="full", seed=TRAIN_SEED, inject_failure_at=TRAIN_FAIL_AT)
     wall_s = time.perf_counter() - t
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated()
@@ -5222,8 +5270,9 @@ def train_run(name: str, dev) -> dict:
     step_s = statistics.median(rep.step_times[1:])
 
     fns = make_train_fns(cfg, remat="full")
-    params, state = fns["init"](torch.Generator(device=dev).manual_seed(51))
-    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH, seed=51).batch_at(0)
+    params, state = fns["init"](torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_LEN, TRAIN_BATCH,
+                               seed=TRAIN_SEED).batch_at(0)
     fns["step"](params, state, batch)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -5259,11 +5308,15 @@ def train_grads(name: str, dev, capture: dict) -> dict:
     held against the same step's through the plain versions on the card,
     within MODEL_PATH_FACTOR x the distance of the plain bfloat16 gradients
     from the plain float32 ones (relative L2 over every gradient); (c)
-    remat "none", "dots" and "full" through the kernels give the same
-    gradients bit for bit. The float32 pass runs first, and a
-    ``host_weights`` arch of FAMILY_RUNS keeps its bfloat16 weights in host
-    memory meanwhile. The
-    peak memory of each pass is reported.
+    remat "none" and "dots" through the kernels give the gradients of
+    remat "full" bit for bit. The three passes run under remat "full", the
+    training runs' mode, which (c) shows the gradients do not depend on:
+    it holds one layer's activations at a time (under remat "none"
+    Qwen2-72B's plain pass peaks at 72.6 GiB of an H100's 79.2, too close
+    to the card's capacity after the lanes before it). The float32 pass runs
+    first, and a ``host_weights`` arch of FAMILY_RUNS keeps its bfloat16
+    weights in host memory meanwhile. The peak memory of each pass is
+    reported.
     ``capture`` receives the first layer's kernel inputs and, under
     ``("flash_layouts", name)``, the first call of each (S, T, causal)
     layout of ``flash_attention``."""
@@ -5290,7 +5343,7 @@ def train_grads(name: str, dev, capture: dict) -> dict:
 
     peaks = {}
 
-    def grads(p, c, remat="none", attention=flash_attention, recurrence=wkv6, key=None):
+    def grads(p, c, remat="full", attention=flash_attention, recurrence=wkv6, key=None):
         ops.attention, ops.wkv6 = attention, recurrence
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5347,12 +5400,12 @@ def train_grads(name: str, dev, capture: dict) -> dict:
           f"{MODEL_PATH_FACTOR} x the plain bfloat16 path's {plain_vs_f32:.3g} from float32")
     check(all(bool(torch.isfinite(g).all()) for g in g_k), f"{name}: gradients not finite")
     remat = {}
-    for mode in ("dots", "full"):
+    for mode in ("none", "dots"):
         loss_m, g_m = grads(params, cfg, remat=mode)
         same = loss_m == loss_k and all(torch.equal(a, b) for a, b in zip(g_m, g_k))
-        remat[mode] = {"bit_equal_to_none": same, "max_abs_diff": max(
+        remat[mode] = {"bit_equal_to_full": same, "max_abs_diff": max(
             float((a.float() - b.float()).abs().max()) for a, b in zip(g_m, g_k))}
-        check(same, f"{name}: remat={mode} gradients differ from remat=none: {remat[mode]}")
+        check(same, f"{name}: remat={mode} gradients differ from remat=full: {remat[mode]}")
         del g_m
     del g_k, params
     torch.cuda.empty_cache()
@@ -5360,47 +5413,91 @@ def train_grads(name: str, dev, capture: dict) -> dict:
             "grads_rel_l2": {"kernels_vs_plain": path, "kernels_vs_f32": kernel_vs_f32,
                              "plain_vs_f32": plain_vs_f32},
             "launches": launches, "kernel_s": kernel_s, "plain_s": plain_s,
-            "remat_vs_none": remat, "weights_in_host_memory_for_f32": host,
+            "remat_vs_full": remat, "weights_in_host_memory_for_f32": host,
             "peak_memory_bytes": peaks}
 
 
-def resume_check() -> dict:
-    """(d): Qwen3-1.7B at full width and GRAD_LAYERS layers, RESUME_STEPS
-    steps uninterrupted against RESUME_AT steps with a CheckpointManager
-    checkpoint, then resumed from it to RESUME_STEPS: the same losses bit
-    for bit. The checkpoint's bytes, the seconds of each run: the
-    interrupted one (RESUME_AT steps and the checkpoint written) and the
-    resumed one (the restore and the remaining steps), in a temporary
-    directory removed afterwards."""
+@contextlib.contextmanager
+def _timed(owner, name: str, seconds: dict, key: str):
+    """Add the seconds of each call of ``owner.<name>`` to ``seconds[key]``
+    (a call on another thread too) while the block runs."""
+    fn = getattr(owner, name)
+
+    def call(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t
+
+    setattr(owner, name, call)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def resume_check(uninterrupted: list) -> dict:
+    """(d): Qwen3-1.7B at full width and depth, trained RESUME_AT steps with
+    a CheckpointManager save there, then resumed from it to TRAIN_STEPS:
+    the resumed losses must be ``uninterrupted`` (train_run's (a): the same
+    seed, batch and remat; its injected failure leaves the losses as they
+    are) from RESUME_AT on, bit for bit. The checkpoint goes to whichever of
+    tempfile.gettempdir() and CKPT_DIR has more free space, which must hold
+    CKPT_ROOM x the bytes reckoned from the parameter and state shapes, and
+    is removed afterwards. Reported: the checkpoint's bytes, the seconds of
+    the host snapshot (``CheckpointManager.save``: the copy to host memory
+    and the writer thread's start), of the write with its sha1 digests (on
+    that thread; ``train`` waits for it after its last step) and of the
+    restore with its digest check (``load_checkpoint``: read back warm from
+    the page cache), and the free space before and after."""
+    import resource
+    import shutil
     import tempfile
-    from dataclasses import replace
 
     import torch
 
+    from repro_torch.checkpoint import CheckpointManager, store
     from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_fns
     from repro_torch.launch.trainer import train
 
-    cfg = replace(get_config("qwen3-1.7b"), num_layers=GRAD_LAYERS)
-    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_LEN, remat="full", seed=54)
+    cfg = get_config("qwen3-1.7b")
+    fns = make_train_fns(cfg)
+    reckoned = tree_bytes(fns["param_shapes"]) + tree_bytes(fns["opt_shapes"])
+    (ROOT / CKPT_DIR).mkdir(exist_ok=True)
+    free = {str(d): shutil.disk_usage(d).free for d in (tempfile.gettempdir(), ROOT / CKPT_DIR)}
+    where = max(free, key=free.get)
+    check(free[where] >= CKPT_ROOM * reckoned,
+          f"resume: {reckoned} bytes of checkpoint reckoned, no directory holds {CKPT_ROOM} x "
+          f"that: free bytes {free}")
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_LEN, remat="full", seed=TRAIN_SEED)
     seconds = {}
-    t = time.perf_counter()
-    full = train(cfg, steps=RESUME_STEPS, **kw)
-    seconds["uninterrupted_s"] = time.perf_counter() - t
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory(dir=where) as d:
         t = time.perf_counter()
-        train(cfg, steps=RESUME_AT, ckpt_dir=d, ckpt_every=RESUME_AT, **kw)
+        with (_timed(CheckpointManager, "save", seconds, "host_snapshot_s"),
+              _timed(store, "save_checkpoint", seconds, "write_with_digests_s")):
+            train(cfg, steps=RESUME_AT, ckpt_dir=d, ckpt_every=RESUME_AT, **kw)
         seconds["interrupted_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        resumed = train(cfg, steps=RESUME_STEPS, ckpt_dir=d, ckpt_every=10 ** 9, **kw)
-        seconds["resumed_s"] = time.perf_counter() - t
-        check(resumed.resumed_from == RESUME_AT and resumed.losses == full.losses[RESUME_AT:],
-              f"resume: losses {resumed.losses} (from {resumed.resumed_from}) against "
-              f"{full.losses[RESUME_AT:]}")
         step_dir = Path(d) / f"step_{RESUME_AT:08d}"
         nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        free_after = shutil.disk_usage(d).free
+        t = time.perf_counter()
+        with _timed(store, "load_checkpoint", seconds, "restore_with_digests_s"):
+            resumed = train(cfg, steps=TRAIN_STEPS, ckpt_dir=d, ckpt_every=10 ** 9, **kw)
+        seconds["resumed_s"] = time.perf_counter() - t
+    with contextlib.suppress(OSError):  # CKPT_DIR goes if it is empty
+        (ROOT / CKPT_DIR).rmdir()
+    check(resumed.resumed_from == RESUME_AT and resumed.losses == uninterrupted[RESUME_AT:],
+          f"resume: losses {resumed.losses} (from {resumed.resumed_from}) against "
+          f"{uninterrupted[RESUME_AT:]}")
     torch.cuda.empty_cache()
-    return {"layers": GRAD_LAYERS, "losses": full.losses, "resumed_losses": resumed.losses,
-            "bit_equal": True, "checkpoint_bytes": nbytes, **seconds}
+    return {"layers": cfg.num_layers, "resumed_at": RESUME_AT, "steps": TRAIN_STEPS,
+            "resumed_losses": resumed.losses, "bit_equal": True,
+            "checkpoint_bytes": nbytes, "reckoned_bytes": reckoned, "directory": where,
+            "free_bytes": free, "free_bytes_after_save": free_after,
+            "host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            **seconds}
 
 
 def time_flash_bwd(q, k, v, causal: bool = True) -> dict:
@@ -5504,9 +5601,10 @@ def family_run(name: str, dev) -> dict:
     ``train_launches`` reckons. Then one step under the profiler (the
     card's activity; after the run's steps, or on a fresh init for
     ``train``, which keeps its weights to itself) for its device time; for
-    an arch with bfloat16
-    state also the AdamW update's memory above what the step holds before
-    it (``optimizer_memory``)."""
+    an arch with bfloat16 state also the AdamW update's memory above what
+    the step holds before it and its share of a step
+    (``optimizer_memory``). The peak memory is reported beside
+    ``train_state_bytes``' reckoning of weights, gradients and state."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
@@ -5575,6 +5673,8 @@ def family_run(name: str, dev) -> dict:
     t = time.perf_counter()
     optimizer = (optimizer_memory(fns, params, state, batch, state_dtype)
                  if state_dtype != torch.float32 else None)
+    if optimizer:
+        optimizer["update_share_of_step"] = optimizer["update_s"] / step_s
     seconds["optimizer_memory_s"] = time.perf_counter() - t
     n_params = param_count(params)
     active = active_param_count(params, cfg)
@@ -5597,14 +5697,17 @@ def family_run(name: str, dev) -> dict:
         "top_device_ms": top,
         "launches": launches,
         "launches_per_step": {k: v / FAMILY_STEPS for k, v in launches.items()},
-        "peak_memory_bytes": peak, "optimizer_memory": optimizer, "seconds": seconds,
+        "peak_memory_bytes": peak,
+        "reckoned_state_bytes": train_state_bytes(cfg, run.get("state", "float32")),
+        "optimizer_memory": optimizer, "seconds": seconds,
     }
 
 
 def optimizer_memory(fns, params, state, batch, state_dtype) -> dict:
     """The AdamW update's peak memory above what is allocated before it
-    (weights, state and gradients): one more step, its gradients first,
-    then ``adamw.update_`` (make_train_fns' optimizer, built again with its
+    (weights, state and gradients) and its seconds (host clock between two
+    synchronizations): one more step, its gradients first, then
+    ``adamw.update_`` (make_train_fns' optimizer, built again with its
     defaults) alone under a fresh peak count. ``one()`` makes several
     float32 copies of a leaf at a time."""
     import torch
@@ -5620,10 +5723,13 @@ def optimizer_memory(fns, params, state, batch, state_dtype) -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     opt = adamw(lr=cosine_schedule(3e-4, warmup=200, total=10_000), state_dtype=state_dtype)
+    t = time.perf_counter()
     opt.update_(from_leaves(params, list(grads)), state, params)
     torch.cuda.synchronize()
+    update_s = time.perf_counter() - t
     largest = max(leaves(params), key=lambda p: p.numel())
-    return {"before_bytes": base, "peak_above_bytes": torch.cuda.max_memory_allocated() - base,
+    return {"update_s": update_s, "before_bytes": base,
+            "peak_above_bytes": torch.cuda.max_memory_allocated() - base,
             "largest_leaf": list(largest.shape),
             "largest_leaf_float32_bytes": largest.numel() * 4}
 
@@ -5683,9 +5789,9 @@ def mamba_scan_check(dev) -> dict:
 def training(dev) -> dict:
     """Phase 14: (a) Qwen3-1.7B and (b) RWKV6-3B trained at full width and
     depth, each with its gradient and remat checks (c) at GRAD_LAYERS
-    layers; (d) resume; (f) FAMILY_RUNS trained, each with the same checks
-    ((g) the Mamba scan's gradient before Jamba's); (e) the backward
-    kernels timed."""
+    layers; (d) (a) resumed at full depth; (f) FAMILY_RUNS trained, each
+    with the same checks ((g) the Mamba scan's gradient before Jamba's);
+    (e) the backward kernels timed."""
     out, seconds, capture = {"runs": {}, "grads": {}}, {}, {}
     for name in MODEL_FAMILIES:
         t = time.perf_counter()
@@ -5695,7 +5801,7 @@ def training(dev) -> dict:
         out["grads"][name] = train_grads(name, dev, capture)
         seconds[f"grads_{name}"] = time.perf_counter() - t
     t = time.perf_counter()
-    out["resume"] = resume_check()
+    out["resume"] = resume_check(out["runs"]["qwen3-1.7b"]["losses"])
     seconds["resume"] = time.perf_counter() - t
     for name in FAMILY_RUNS:
         if "mamba" in family_cfg(name).block_pattern:
@@ -5951,7 +6057,8 @@ def main() -> int:
     log(f"== 14 training on the card ({card}) through repro_torch.launch.trainer.train "
         f"and make_train_fns, {TRAIN_BATCH} x {TRAIN_LEN} tokens a step (Whisper-small "
         f"{FAMILY_RUNS['whisper-small']['seq']} over 1,500 frames, InternVL2-1B after 256 "
-        f"patches), remat full, in {tr['seconds']['phase_s']:.2f} s")
+        f"patches), remat full, (f) as {json.dumps(FAMILY_RUNS)}, in "
+        f"{tr['seconds']['phase_s']:.2f} s")
     for name, row in tr["runs"].items():
         part = "ab"[MODEL_FAMILIES.index(name)] if name in MODEL_FAMILIES else "f"
         log(f"   ({part}) {name}: " + json.dumps(row))
@@ -5959,12 +6066,26 @@ def main() -> int:
             + json.dumps(tr["grads"][name]))
     for name in FAMILY_RUNS:
         row, grad = tr["runs"][name], tr["grads"][name]
-        log(f"   (f) {name}: {row['tokens_per_s']:.1f} tokens/s, {row['median_step_s']:.4f} s "
-            f"a step, busy {row['device_busy_share']:.3f}, peak {row['peak_memory_bytes']} "
-            f"bytes, launches a step {json.dumps(row['launches_per_step'])}, gradients "
+        update = row["optimizer_memory"]
+        log(f"   (f) {name}, {row['layers']} layers, {row['opt_state_dtype']} state: "
+            f"{row['tokens_per_s']:.1f} tokens/s, {row['median_step_s']:.4f} s a step, busy "
+            f"{row['device_busy_share']:.3f}, peak {row['peak_memory_bytes'] / 1e9:.2f} GB "
+            f"against {row['reckoned_state_bytes'] / 1e9:.2f} GB reckoned (weights + "
+            f"gradients + state), "
+            + (f"AdamW update {update['update_s']:.4f} s ({update['update_share_of_step']:.3f}"
+               f" of a step), " if update else "")
+            + f"launches a step {json.dumps(row['launches_per_step'])}, gradients "
             f"kernels vs plain {grad['grads_rel_l2']['kernels_vs_plain']:.4g} (plain vs "
             f"float32 {grad['grads_rel_l2']['plain_vs_f32']:.4g})")
-    log("   (d) resume: " + json.dumps(tr["resume"]))
+    rs = tr["resume"]
+    log(f"   (d) resume at full depth ({rs['layers']} layers): {rs['checkpoint_bytes']} bytes "
+        f"of checkpoint ({rs['reckoned_bytes']} reckoned) in {rs['directory']} "
+        f"({rs['free_bytes'][rs['directory']]} bytes free before, "
+        f"{rs['free_bytes_after_save']} after the save); host snapshot "
+        f"{rs['host_snapshot_s']:.2f} s, write with digests {rs['write_with_digests_s']:.2f} s, "
+        f"restore with digests {rs['restore_with_digests_s']:.2f} s; losses from step "
+        f"{rs['resumed_at']} bit-equal to (a)'s")
+    log("   (d) resume: " + json.dumps(rs))
     log("   (g) the Mamba scan's gradient: " + json.dumps(tr["mamba_scan"]))
     log("   (e) flash_attention_bwd: " + json.dumps(tr["flash_attention_bwd"]))
     for key, row in tr["flash_attention_bwd_layouts"].items():

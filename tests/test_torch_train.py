@@ -1,8 +1,9 @@
 """The port's training path against the JAX package's, on the CPU: AdamW,
 the schedule and the clip on identical gradients; the loss and gradients
 of the ``.scaled()`` Qwen3 and RWKV6 models for each ``remat`` with the
-JAX weights crossed by ``convert``; the trainer's losses step by step; and
-the port's own resume, bit for bit.
+JAX weights crossed by ``convert``; the trainer's losses step by step; the
+port's own resume, bit for bit, also against a run with a failure injected;
+and the depth cuts and memory reckoning of ``chip_smoke.py``'s phase 14.
 
 Tolerances:
 
@@ -19,6 +20,10 @@ Tolerances:
   in float32, where bfloat16 rounding at other points would hide a wrong
   term.
 """
+
+import importlib.util
+from dataclasses import replace
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +45,7 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.launch import train_lm
 from repro_torch.launch.train import cross_entropy, make_train_fns, width_scaled_lr
 from repro_torch.launch.trainer import train
+from repro_torch.models import param_count
 from repro_torch.optim import adamw, cosine_schedule, global_norm
 from repro_torch.optim.adamw import leaves
 
@@ -242,6 +248,49 @@ def test_resume_is_bit_exact(tiny_f32, tmp_path):
     assert resumed.resumed_from == 8
     assert resumed.losses == full.losses[8:]
     assert len(full.step_times) == 12 and all(t > 0 for t in full.step_times)
+
+
+def test_an_injected_failure_leaves_the_losses_a_resume_gives(tmp_path):
+    """What phase 14's full-depth resume check in ``chip_smoke.py`` relies
+    on: a run with a failure injected at step 2 (the retry path, as its
+    uninterrupted run (a) has it) gives from step 2 on the losses of the
+    same run checkpointed at step 2 and resumed there, bit for bit, in
+    bfloat16 with remat="full" as on the card."""
+    cfg = configs.get_config("qwen3-1.7b").scaled(**TINY)
+    kw = dict(global_batch=4, seq_len=32, remat="full", seed=3, device="cpu")
+    uninterrupted = train(cfg, steps=5, inject_failure_at=2, **kw)
+    train(cfg, steps=2, ckpt_dir=tmp_path, ckpt_every=2, **kw)
+    resumed = train(cfg, steps=5, ckpt_dir=tmp_path, ckpt_every=100, **kw)
+    assert resumed.resumed_from == 2 and len(uninterrupted.losses) == 5
+    assert resumed.losses == uninterrupted.losses[2:]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name, layers, state, params", [
+    ("deepseek-moe-16b", 8, "float32", 5_122_328_576),
+    ("chatglm3-6b", 28, "bfloat16", 6_243_584_000),
+    ("qwen2-72b", 4, "bfloat16", 6_002_163_712),
+])
+def test_phase14_depth_cuts_and_memory_reckoning(smoke, name, layers, state, params):
+    """``chip_smoke.family_cfg`` applies an arch's ``layers`` cut of
+    ``FAMILY_RUNS`` and nothing else, and ``train_state_bytes`` is
+    ``param_count`` x the bytes a parameter takes: 2 + 2 for bfloat16
+    weights and gradients, 2 x 4 or 2 x 2 for AdamW's m and v."""
+    run = smoke.FAMILY_RUNS[name]
+    assert run.get("layers", layers) == layers and run.get("state", "float32") == state
+    cfg = smoke.family_cfg(name)
+    assert cfg == replace(configs.get_config(name), num_layers=layers)
+    n = param_count(make_train_fns(cfg, device="cpu")["param_shapes"])
+    assert n == params
+    assert smoke.train_state_bytes(cfg, state) == n * (4 + 2 * {"float32": 4, "bfloat16": 2}[state])
 
 
 def test_train_lm_runs_on_the_cpu(capsys):

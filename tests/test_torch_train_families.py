@@ -189,6 +189,51 @@ def test_one_step_matches_the_jax_step(name):
     assert den > 0 and (num / den) ** 0.5 <= 1e-3
 
 
+@pytest.mark.parametrize("name", ["chatglm3-6b", "qwen2-72b"])
+def test_one_step_with_bfloat16_state_matches_the_jax_step(name):
+    """One step of ``make_train_fns(opt_state_dtype=torch.bfloat16)``, the
+    AdamW state phase 14 of ``chip_smoke.py`` gives ChatGLM3-6B and
+    Qwen2-72B, against the JAX step with ``opt_state_dtype=jnp.bfloat16``
+    at float32 weights. Both round ``m`` and ``v`` to bfloat16 after
+    computing them in float32, from gradients that differ by the two
+    frameworks' summation orders, so an element near a rounding boundary
+    may round to the neighbouring bfloat16 value: ``m`` and ``v`` within
+    one bfloat16 ulp of the element (2^-7 relative) plus the float32 step's
+    tolerances (1e-4 and 2e-4 of the leaf's largest value). The new weights
+    as in the float32 step: within 2 lr of each other (an ulp of ``m`` or
+    ``v`` moves an update by under 1% of lr) and their update within 1e-3
+    relative L2."""
+    jcfg, pcfg, jp, jbatch, batch = _case(name)
+    jfns = jax_train_fns(jcfg, make_host_mesh(), opt_state_dtype=jnp.bfloat16)
+    jo = jfns["init"](jax.random.key(0))[1]
+    jnew, jstate, jmetrics = jax.jit(jfns["step"])(jp, jo, jbatch)
+    pp = _port_params(name)
+    po = convert.opt_state_from_jax(jax.tree.map(np.asarray, jo), pcfg)
+    before = [p.detach().clone() for p in leaves(pp)]
+    fns = make_train_fns(pcfg, opt_state_dtype=torch.bfloat16, device="cpu")
+    pnew, pstate, pmetrics = fns["step"](pp, po, batch)
+    np.testing.assert_allclose(float(pmetrics["loss"]), float(jmetrics["loss"]), rtol=1e-5)
+    assert int(pstate["step"]) == int(jstate["step"]) == 1
+    for key, tol in (("m", 1e-4), ("v", 2e-4)):
+        want = leaves(convert.model_params_from_jax(jax.tree.map(np.asarray, jstate[key]), pcfg))
+        got = leaves(pstate[key])
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype == torch.bfloat16, key
+            np.testing.assert_allclose(_np(a), _np(b), rtol=2.0 ** -7,
+                                       atol=tol * max(float(b.float().abs().max()), 1e-12),
+                                       err_msg=key)
+    want = leaves(convert.model_params_from_jax(jax.tree.map(np.asarray, jnew), pcfg))
+    num = den = 0.0
+    for a, b, p0 in zip(leaves(pnew), want, before):
+        a = a.detach()
+        assert a.dtype == b.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 2 * LR1 * 1.01
+        num += float(((a - b).double() ** 2).sum())
+        den += float(((b - p0).double() ** 2).sum())
+    assert den > 0 and (num / den) ** 0.5 <= 1e-3
+
+
 @pytest.mark.parametrize("name", ARCHS)
 def test_remat_modes_give_the_same_gradients_bit_for_bit(name):
     loss, grads, seen = _port_loss_and_grads(name, "none")
