@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.wkv6 import wkv6
 
@@ -38,10 +39,11 @@ def decode_attention(q, k_cache, v_cache, valid_len: int):
     a repeated cache."""
     B, S, H, hd = q.shape
     KV = k_cache.shape[2]
-    k = k_cache[:, :valid_len].float()
-    v = v_cache[:, :valid_len].float()
-    qg = q.float().reshape(B, S, KV, H // KV, hd)
-    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k) / math.sqrt(hd)
-    w = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bgrst,btgd->bsgrd", w, v)
-    return o.reshape(B, S, H, hd).to(q.dtype)
+    with obs.span("rt.decode_attention"):
+        k = k_cache[:, :valid_len].float()
+        v = v_cache[:, :valid_len].float()
+        qg = q.float().reshape(B, S, KV, H // KV, hd)
+        scores = torch.einsum("bsgrd,btgd->bgrst", qg, k) / math.sqrt(hd)
+        w = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bgrst,btgd->bsgrd", w, v)
+        return o.reshape(B, S, H, hd).to(q.dtype)

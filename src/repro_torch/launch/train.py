@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.models import forward, init_model
 from repro_torch.models.config import ModelConfig
@@ -25,12 +26,13 @@ def cross_entropy(logits, labels):
     label's logit with a one-hot contraction (for its vocab-sharded head);
     a gather picks the same term, and at 8,192 tokens x 151,936 a float32
     one-hot would be 5 GB."""
-    lf = logits.float()
-    m = lf.max(dim=-1, keepdim=True).values.detach()
-    shifted = lf - m
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    picked = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
-    return (lse - picked).mean()
+    with obs.span("rt.loss"):
+        lf = logits.float()
+        m = lf.max(dim=-1, keepdim=True).values.detach()
+        shifted = lf - m
+        lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+        picked = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+        return (lse - picked).mean()
 
 
 def width_scaled_lr(d_model: int, base_lr: float = 3e-4, base_width: int = 2048) -> float:
@@ -95,10 +97,13 @@ def make_train_fns(
     def step_fn(params, opt_state, batch):
         ps = leaves(params)
         with torch.enable_grad():
-            loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, ps)
+            with obs.span("rt.train.forward"):
+                loss = loss_fn(params, batch)
+            with obs.span("rt.train.backward"):
+                grads = torch.autograd.grad(loss, ps)
         grad_tree = from_leaves(params, grads)
-        grad_norm = global_norm(grad_tree)
+        with obs.span("rt.train.clip"):
+            grad_norm = global_norm(grad_tree)
         params, opt_state = opt.update_(grad_tree, opt_state, params)
         return params, opt_state, {"loss": loss.detach(), "step": opt_state["step"].clone(),
                                    "grad_norm": grad_norm}

@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
@@ -149,10 +150,11 @@ def attn_project_qkv(p, x, cfg: ModelConfig, rope):
 def attn_apply(p, x, cfg: ModelConfig, rope, causal: bool = True):
     """Full-sequence attention (prefill / training) at the positions of the
     ``rope`` tables. Returns (out, (k, v))."""
-    q, k, v = attn_project_qkv(p, x, cfg, rope)
-    o = ops.attention(q, k, v, causal=causal)  # (B, S, H, hd)
-    out = o.reshape(o.shape[0], o.shape[1], -1) @ p["w_o"]
-    return out, (k, v)
+    with obs.span("rt.attn"):
+        q, k, v = attn_project_qkv(p, x, cfg, rope)
+        o = ops.attention(q, k, v, causal=causal)  # (B, S, H, hd)
+        out = o.reshape(o.shape[0], o.shape[1], -1) @ p["w_o"]
+        return out, (k, v)
 
 
 def attn_apply_int8(p, x, cfg: ModelConfig, rope):
@@ -207,21 +209,22 @@ def attn_decode(p, x, cfg: ModelConfig, cache_k, cache_v, cur_len: int, rope,
     writes it. Returns the block's output (B, 1, D).
     """
     B = x.shape[0]
-    q, k, v = attn_project_qkv(p, x, cfg, rope)
-    n = cur_len + 1
-    if cfg.kv_cache_dtype == "int8":
-        kq, ks = quantize_kv(k[:, 0])
-        vq, vs = quantize_kv(v[:, 0])
-        cache_k[:, cur_len], k_scale[:, cur_len] = kq, ks
-        cache_v[:, cur_len], v_scale[:, cur_len] = vq, vs
-        keys = dequantize_kv(cache_k[:, :n], k_scale[:, :n])
-        values = dequantize_kv(cache_v[:, :n], v_scale[:, :n])
-    else:
-        cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)
-        keys, values = cache_k, cache_v
-    o = ops.decode_attention(q, keys, values, n)
-    return o.reshape(B, 1, -1) @ p["w_o"]
+    with obs.span("rt.attn.decode"):
+        q, k, v = attn_project_qkv(p, x, cfg, rope)
+        n = cur_len + 1
+        if cfg.kv_cache_dtype == "int8":
+            kq, ks = quantize_kv(k[:, 0])
+            vq, vs = quantize_kv(v[:, 0])
+            cache_k[:, cur_len], k_scale[:, cur_len] = kq, ks
+            cache_v[:, cur_len], v_scale[:, cur_len] = vq, vs
+            keys = dequantize_kv(cache_k[:, :n], k_scale[:, :n])
+            values = dequantize_kv(cache_v[:, :n], v_scale[:, :n])
+        else:
+            cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)
+            keys, values = cache_k, cache_v
+        o = ops.decode_attention(q, keys, values, n)
+        return o.reshape(B, 1, -1) @ p["w_o"]
 
 
 def cross_attn_apply(p, x, cross_k, cross_v, cfg: ModelConfig):
@@ -261,11 +264,12 @@ def mlp_init(cfg: ModelConfig, generator, device, d_ff: int | None = None):
 
 
 def mlp_apply(p, x, cfg: ModelConfig):
-    if "w3" in p:
-        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    else:
-        h = F.gelu(x @ p["w1"], approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["w2"]
+    with obs.span("rt.mlp"):
+        if "w3" in p:
+            h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+        else:
+            h = F.gelu(x @ p["w1"], approximate="tanh")  # jax.nn.gelu's default
+        return h @ p["w2"]
 
 
 # ----------------------------------------------------------------------- MLA
@@ -413,25 +417,34 @@ def moe_apply(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     xg = x.transpose(0, 1) if per_position else x.reshape(1, B * S, D)  # (G, N, D)
     G, N = xg.shape[:2]
     C = moe_capacity(N, cfg, capacity_factor)
-    logits = (xg @ p["router"]).float()
-    probs, gates, picks, pos, keep = moe_route(logits, K, C)
+    with obs.span("rt.moe.route"):
+        logits = (xg @ p["router"]).float()
+        probs, gates, picks, pos, keep = moe_route(logits, K, C)
+    if obs.counting():
+        obs.count("moe.picks", G * N * K)
+        obs.count("moe.kept", keep.sum())
+        obs.count("moe.slots", E * G * C)
     # dispatch (G, N, K) -> the experts' buffers (E, G, C, D)
-    e_idx = torch.where(keep, picks, 0)
-    s_idx = torch.where(keep, pos, 0)
-    g_idx = torch.arange(G, device=x.device)[:, None, None].expand(G, N, K)
-    vals = torch.where(keep[..., None], xg[:, :, None, :], 0).to(x.dtype)
-    disp = torch.zeros((E, G, C, D), dtype=x.dtype, device=x.device)
-    disp.index_put_((e_idx, g_idx, s_idx), vals, accumulate=True)
-    flat = disp.reshape(E, G * C, D)
-    h = F.silu(torch.bmm(flat, p["we1"])) * torch.bmm(flat, p["we3"])
-    eout = torch.bmm(h, p["we2"]).reshape(E, G, C, D)
+    with obs.span("rt.moe.dispatch"):
+        e_idx = torch.where(keep, picks, 0)
+        s_idx = torch.where(keep, pos, 0)
+        g_idx = torch.arange(G, device=x.device)[:, None, None].expand(G, N, K)
+        vals = torch.where(keep[..., None], xg[:, :, None, :], 0).to(x.dtype)
+        disp = torch.zeros((E, G, C, D), dtype=x.dtype, device=x.device)
+        disp.index_put_((e_idx, g_idx, s_idx), vals, accumulate=True)
+    with obs.span("rt.moe.experts"):
+        flat = disp.reshape(E, G * C, D)
+        h = F.silu(torch.bmm(flat, p["we1"])) * torch.bmm(flat, p["we3"])
+        eout = torch.bmm(h, p["we2"]).reshape(E, G, C, D)
     # combine, in float32 as the JAX function promotes it
-    gathered = eout[e_idx, g_idx, s_idx]  # (G, N, K, D)
-    combined = (gathered * torch.where(keep, gates, 0.0)[..., None]).sum(-2)
-    out = combined.to(x.dtype)
-    out = out.transpose(0, 1) if per_position else out.reshape(B, S, D)
+    with obs.span("rt.moe.combine"):
+        gathered = eout[e_idx, g_idx, s_idx]  # (G, N, K, D)
+        combined = (gathered * torch.where(keep, gates, 0.0)[..., None]).sum(-2)
+        out = combined.to(x.dtype)
+        out = out.transpose(0, 1) if per_position else out.reshape(B, S, D)
     if "shared" in p:
-        out = out + mlp_apply(p["shared"], x, cfg)
+        with obs.span("rt.moe.shared"):
+            out = out + mlp_apply(p["shared"], x, cfg)
     if per_position:
         return out, torch.zeros((), dtype=torch.float32, device=x.device)
     me = probs[0].mean(0)

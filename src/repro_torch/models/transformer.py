@@ -80,6 +80,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -228,18 +229,20 @@ def active_param_count_shapes(cfg: ModelConfig) -> int:
 def _embed(params, cfg: ModelConfig, tokens, extra_embeds=None):
     """The tokens' embeddings times sqrt(D), after ``extra_embeds`` (B, P,
     D), which are prepended unscaled."""
-    x = params["embed"][tokens].to(L.compute_dtype(cfg))
-    x = x * math.sqrt(cfg.d_model)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    return x
+    with obs.span("rt.embed"):
+        x = params["embed"][tokens].to(L.compute_dtype(cfg))
+        x = x * math.sqrt(cfg.d_model)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        return x
 
 
 def _head(params, cfg: ModelConfig, x):
-    x = L.norm_apply(params["final_norm"], x, cfg)
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+    with obs.span("rt.head"):
+        x = L.norm_apply(params["final_norm"], x, cfg)
+        if cfg.tie_embeddings:
+            return x @ params["embed"].T
+        return x @ params["lm_head"]
 
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -489,7 +492,7 @@ def decode_step(params, cfg: ModelConfig, state, token, cur_len: int):
     check_supported(cfg)
     cur_len = int(cur_len)
     int8 = cfg.kv_cache_dtype == "int8"
-    with torch.inference_mode():
+    with torch.inference_mode(), obs.span("rt.decode.step"):
         x = _embed(params, cfg, token)
         positions = torch.full(token.shape, cur_len, dtype=torch.int64, device=x.device)
         rope = L.rope_tables(positions, cfg)
@@ -560,7 +563,7 @@ def prefill(params, cfg: ModelConfig, tokens, state, extra_embeds=None, frames=N
     prompt has no ``extra_embeds``."""
     check_supported(cfg)
     _check_prompt(cfg, tokens, frames)
-    with torch.inference_mode():
+    with torch.inference_mode(), obs.span("rt.prefill"):
         logits, _ = _forward(params, cfg, tokens, state=state, extra_embeds=extra_embeds,
                              frames=frames)
     return logits[:, -1:], state

@@ -20,6 +20,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
+
 
 def leaves(tree) -> list:
     """The tensors of a nested dict / list tree, dict keys sorted (the
@@ -139,8 +141,9 @@ def adamw(
         step = state["step"] + 1
         scale = None
         if clip_norm is not None:
-            gn = global_norm(grads)
-            scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
+            with obs.span("rt.train.clip"):
+                gn = global_norm(grads)
+                scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
         stepf = step.to(torch.float32)
         b1t = torch.tensor(b1, dtype=torch.float32, device=stepf.device)
         b2t = torch.tensor(b2, dtype=torch.float32, device=stepf.device)
@@ -167,7 +170,7 @@ def adamw(
 
     def update_(grads, state, params):
         step, scale, bc1, bc2, lr_t = scalars(grads, state)
-        with torch.no_grad():
+        with torch.no_grad(), obs.span("rt.train.adamw"):
             for leaf in zip(leaves(params), leaves(grads), leaves(state["m"]),
                             leaves(state["v"])):
                 for p, g, mo, vo in _slices(*leaf):
