@@ -1040,7 +1040,7 @@ def attention_checks(dev) -> float:
             tbl = tbl.to(torch.int32).to(dev)
             tbl[0, 5] = -1
             lens = torch.tensor([633, 0, 250, 639], dtype=torch.int32, device=dev)
-            pps = card_pages_per_split(q, k, tbl)
+            pps = card_pages_per_split(q, k, tbl.shape[1], k.shape[1])
             check(-(-ppseq // pps) >= 3, f"40 pages cut into fewer than 3 splits of {pps}")
             got = paged_decode_attention(q, k, v, tbl, lens)
             torch.cuda.synchronize()
@@ -1425,7 +1425,7 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
     check(torch.allclose(outs[0].float(), want.float(), rtol=2e-2, atol=2e-2)
           and all(bool(torch.isfinite(o).all()) for o in outs),
           f"paged_decode_attention on the serving pool: max |diff| {err}")
-    pps = card_pages_per_split(q, k0, tbl_d)
+    pps = card_pages_per_split(q, k0, tbl_d.shape[1], k0.shape[1])
     split_want = paged_decode_attention_split_plain(q, k0, v0, tbl_d, lens_d, pps)
     split_err = float((outs[0].float() - split_want.float()).abs().max())
     check(torch.allclose(outs[0].float(), split_want.float(), rtol=2e-2, atol=2e-2),
@@ -1460,8 +1460,8 @@ def attention_on_last_batch(dev, capture: dict) -> dict:
     ops_ms = 4 * tokens * QWEN3_1_7B_QUERY_HEADS * p["head_dim"] / ALU_OPS_PER_S * 1e3
     n_splits = -(-ppseq // pps)
     return {
-        "design": f"split page list ({n_splits} splits of {pps} pages), "
-                  "cp.async 16 B, LSE merge",
+        "design": f"runs of {pps} pages ({n_splits} splits) through a cp.async "
+                  "ring, online softmax, LSE merge",
         "launches": launches, "max_abs_err": max(err, split_err), "ms": ms,
         "device_ms": device_ms, "host_ms": host_ms,
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
@@ -2148,7 +2148,8 @@ def attention_launches(cfg) -> tuple:
     """``flash_attention`` launches of (a prefill, a decode step): one a GQA
     layer (none for MLA), one an encoder layer and one a cross-attention
     layer in the prefill; a decode step launches one a cross-attention
-    layer (its self-attention reads the cache in plain PyTorch)."""
+    layer (its self-attention reads the cache through ``ops.decode_attention``,
+    one launch of the paged kernel's contiguous mode a GQA layer)."""
     layers = sum(k == "attn" for k in cfg.block_pattern) * cfg.num_groups
     cross = layers if cfg.has_encoder else 0
     return (layers if cfg.attn_type == "gqa" else 0) + cfg.encoder_layers + cross, cross
@@ -2360,6 +2361,7 @@ def serve_model(name: str, dev, capture: dict, overrides: dict | None = None) ->
 
     logits = None
     flash_attention.launches = 0
+    decode_attention_before = ops.decode_attention.launches
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for i in range(PROFILED_STEPS):
@@ -2376,6 +2378,11 @@ def serve_model(name: str, dev, capture: dict, overrides: dict | None = None) ->
     check(decode_launches == NEW_TOKENS * n_cross,
           f"{name}: {NEW_TOKENS} decode steps launched flash_attention {decode_launches} "
           f"times, want {n_cross} a step")
+    n_self = n_attn - cfg.encoder_layers - n_cross  # the GQA layers
+    self_launches = ops.decode_attention.launches - decode_attention_before
+    check(self_launches == NEW_TOKENS * n_self,
+          f"{name}: {NEW_TOKENS} decode steps launched the decode attention kernel "
+          f"{self_launches} times, want {n_self} a step")
     out_tokens = torch.cat(new, dim=1)
     check(bool(torch.isfinite(logits).all())
           and bool(((out_tokens >= 0) & (out_tokens < cfg.vocab_size)).all()),
@@ -2401,6 +2408,7 @@ def serve_model(name: str, dev, capture: dict, overrides: dict | None = None) ->
         "prefill_repeat_max_abs_diff": repeat_diff,
         "launches": launches,
         "decode_flash_attention_launches_per_step": decode_launches / NEW_TOKENS,
+        "decode_attention_launches_per_step": self_launches / NEW_TOKENS,
         "kernel_vs_plain_path": path,
         "kernel_path_vs_f32": kernel_vs_f32,
         "plain_path_vs_f32": plain_vs_f32,
@@ -2642,6 +2650,71 @@ def time_flash(call) -> dict:
         "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd, "causal": causal},
         "gflop": flops / 1e9, "bytes": io_bytes,
         "tflop_per_s": flops / ms / 1e9,
+    }
+
+
+def time_decode_attention(dev) -> dict:
+    """ops.decode_attention at the decode benchmark cell's shape (16
+    sequences, a 32,768-position bfloat16 cache, Qwen3-1.7B's 16 query
+    heads over 8 KV heads of 128, every position valid): the kernel beside
+    its K/V byte bound, the plain version and scaled_dot_product_attention
+    (GQA) over the same cache (a yardstick only; the port never calls it).
+    ``ms`` is a call's share of 20 back-to-back calls (the host's launches
+    overlap the card's work); ``device_ms`` the two kernels' profiled time."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import contiguous_decode_attention
+    from repro_torch.roofline import HW
+
+    B, S, KV, H = 16, 32768, QWEN3_1_7B_PAGE["kv_heads"], QWEN3_1_7B_QUERY_HEADS
+    hd = QWEN3_1_7B_PAGE["head_dim"]
+    gen = torch.Generator(device=dev).manual_seed(33)
+    kc, vc = (torch.randn((B, S, KV, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((B, 1, H, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    call = lambda: ops.decode_attention(q, kc, vc, S)
+    got = call()
+    want = ops.decode_attention_plain(q, kc, vc, S)
+    err = float((got.float() - want.float()).abs().max())
+    # an output element is a mean of 32,768 rows of V, about 0.009: the limit
+    # is a share of the largest (bfloat16 rounds the two float32 results at
+    # most one step, 2^-7 of an element, apart), and must reject the output
+    # without one split's positions
+    scale = float(want.float().abs().max())
+    splits = contiguous_decode_attention(q[:, 0], kc, vc, S)[1]
+    n = S // splits
+    short = ops.decode_attention_plain(q, kc[:, n:], vc[:, n:], S - n)
+    split_err = float((short.float() - want.float()).abs().max())
+    del short
+    check(err <= 1e-2 * scale < split_err,
+          f"decode_attention at the decode cell's shape: max |diff| {err}, limit "
+          f"{1e-2 * scale}, without one of {splits} splits {split_err}")
+    ms = batched_ms(call)
+    device_ms = profiled_ms(call, "paged_split_kernel", "paged_merge_kernel")
+    host_ms = host_ms_per_call(call)
+    plain_ms = cuda_ms(lambda: ops.decode_attention_plain(q, kc, vc, S), repeats=5, warmup=1)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+    sdpa_diff = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+    del got, want
+    library_ms = batched_ms(sdpa)
+    kv_bytes = 2 * B * S * KV * hd * kc.element_size()
+    io_bytes = 2 * q.numel() * q.element_size()
+    bound_ms = (kv_bytes + io_bytes) / HW.hbm_bw * 1e3
+    return {
+        "design": "contiguous mode of the paged kernel: long runs through a cp.async ring, "
+                  "online softmax, LSE merge",
+        "splits": splits, "max_abs_err": err, "max_abs_out": scale,
+        "max_abs_err_without_a_split": split_err, "ms": ms, "device_ms": device_ms,
+        "host_ms": host_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "roofline_share": bound_ms / ms, "library_ms": library_ms,
+        "sdpa_max_abs_diff": sdpa_diff, "tb_per_s": (kv_bytes + io_bytes) / ms / 1e9,
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16"},
     }
 
 
@@ -5965,10 +6038,12 @@ def main() -> int:
     fa = time_flash(model_capture["flash_attention"])
     wk = time_wkv6(model_capture)
     del model_capture
-    log(f"== 9 model kernels timed on the first layer's serving inputs in "
-        f"{time.perf_counter() - t:.2f} s")
+    da = time_decode_attention(dev)
+    log(f"== 9 model kernels timed on the first layer's serving inputs (decode "
+        f"attention at the decode cell's shape) in {time.perf_counter() - t:.2f} s")
     log("   flash_attention: " + json.dumps(fa))
     log("   wkv6: " + json.dumps(wk))
+    log("   decode_attention: " + json.dumps(da))
 
     t = time.perf_counter()
     paper = paper_experiment(dev, background)
@@ -6193,6 +6268,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_attention.py:113",
         **{k: pa[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        # no TPU counterpart: ref.decode_attention is plain JAX; the paged
+        # kernel's contiguous mode reads the model's decode cache in place
+        "replaces": "src/repro/kernels/ref.py:40",
+        "tpu_kernel": None,
+        "launches": served["qwen3-1.7b"]["decode_attention_launches_per_step"] * NEW_TOKENS,
+        **{k: da[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms", "splits")},
     }, {
         "name": "flash_attention",
         "route": "cuda",

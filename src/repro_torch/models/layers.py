@@ -217,8 +217,9 @@ def attn_decode(p, x, cfg: ModelConfig, cache_k, cache_v, cur_len: int, rope,
             vq, vs = quantize_kv(v[:, 0])
             cache_k[:, cur_len], k_scale[:, cur_len] = kq, ks
             cache_v[:, cur_len], v_scale[:, cur_len] = vq, vs
-            keys = dequantize_kv(cache_k[:, :n], k_scale[:, :n])
-            values = dequantize_kv(cache_v[:, :n], v_scale[:, :n])
+            # the kernel takes one dtype; bfloat16 to float32 is exact
+            keys = dequantize_kv(cache_k[:, :n], k_scale[:, :n]).to(q.dtype)
+            values = dequantize_kv(cache_v[:, :n], v_scale[:, :n]).to(q.dtype)
         else:
             cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
             cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)

@@ -8,9 +8,11 @@ path's shape 20 times over, and at Qwen3-1.7B's KV page); ``strided_probe``
 is held to a float64 version within its rounding bound and
 ``paged_decode_attention`` (also to the plain version of its
 split-and-merge) and ``flash_attention`` to their plain versions within
-2e-4 (float32) or 2e-2 (bfloat16), ``wkv6`` to its plain version
-within 3e-4 (float32 r, k, v; the float32 state always) or 2e-2 (bfloat16
-r, k, v beside float32 w). The backward kernels ``flash_attention_bwd``
+2e-4 (float32) or 2e-2 (bfloat16), ``ops.decode_attention`` (the same
+kernel over a model's decode cache in place) to its plain version within
+1e-4 (float32) or 1e-2 (bfloat16) of the output's largest element,
+``wkv6`` to its plain version within 3e-4 (float32 r, k, v; the float32
+state always) or 2e-2 (bfloat16 r, k, v beside float32 w). The backward kernels ``flash_attention_bwd``
 and ``wkv6_bwd`` are held to autograd of the plain versions within 1e-4
 (float32) or 1e-2 (bfloat16) of each gradient's largest value, and repeat
 bit for bit.
@@ -24,6 +26,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_plain,
 )
+from repro_torch.kernels import ops
 from repro_torch.kernels.page_migrate import migrate_pages, migrate_pages_plain
 from repro_torch.kernels.paged_attention import (
     card_pages_per_split,
@@ -311,7 +314,7 @@ def test_paged_attention_long_sequences_match_plain_and_split_plain(cuda, dtype,
     tbl[0, 5] = -1
     lens = torch.tensor([633, 0, 250, 639], dtype=torch.int32)
     tbl_d, lens_d = tbl.to(cuda), lens.to(cuda)
-    pps = card_pages_per_split(q, k, tbl_d)
+    pps = card_pages_per_split(q, k, tbl_d.shape[1], k.shape[1])
     assert -(-ppseq // pps) >= 3
     got = paged_decode_attention(q, k, v, tbl_d, lens_d)
     torch.cuda.synchronize()
@@ -341,6 +344,122 @@ def test_paged_attention_unaligned_pool_matches_plain(cuda, dtype):
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
     assert not bool(got[1].any())
+
+
+def _decode_case(cuda, dtype, B, S_max, KV, rep, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, 1, KV * rep, hd), generator=g).to(dtype).to(cuda)
+    kc = torch.randn((B, S_max, KV, hd), generator=g).to(dtype).to(cuda)
+    vc = torch.randn((B, S_max, KV, hd), generator=g).to(dtype).to(cuda)
+    return q, kc, vc
+
+
+# The decode kernel's limit, as a share of the output's largest element. With
+# random q, K and V an output element is a mean of ~valid_len rows of V,
+# about sqrt(e / valid_len) (0.036 at 2,048 positions), so an absolute
+# limit would grow loose with the length. Both versions compute in float32
+# in another order; in bfloat16 they round that float32 value apart by at
+# most one step, 2^-7 of the element.
+DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _decode_err(got, want) -> float:
+    """max |got - want| as a share of max |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _decode_close(cuda, q, kc, vc, valid_len):
+    """The kernel (one launch) against the plain version in the working
+    type, within ``DECODE_TOL``."""
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(q, kc, vc, valid_len)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    want = ops.decode_attention_plain(q, kc, vc, valid_len)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert _decode_err(got, want) <= DECODE_TOL[q.dtype]
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 2, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("valid_len", [1, 1021, 2048])
+def test_decode_attention_matches_plain(cuda, dtype, rep, hd, valid_len):
+    # one position; 1,021 ends inside a tile of every dtype and head size
+    # and inside a split; 2,048 is the whole cache
+    q, kc, vc = _decode_case(cuda, dtype, 3, 2048, 2, rep, hd, rep * hd + valid_len)
+    _decode_close(cuda, q, kc, vc, valid_len)
+
+
+@pytest.mark.parametrize("H,KV", [(14, 2), (32, 2)])
+def test_decode_attention_at_other_archs_heads(cuda, H, KV):
+    # InternVL2-1B's 7 query heads a KV head (a block of 8, one idle) and
+    # ChatGLM3-6B's 16 (two blocks of 8 a KV head), bfloat16
+    q, kc, vc = _decode_case(cuda, torch.bfloat16, 2, 1500, KV, H // KV, 128, H)
+    _decode_close(cuda, q, kc, vc, 1333)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_over_a_state_group(cuda, dtype):
+    # the cache as the decode state holds it: state[name][g] of (G, B, S, KV,
+    # hd), and a head slice whose token stride is not KV * hd
+    g = torch.Generator().manual_seed(3)
+    state = torch.randn((3, 2, 700, 4, 64), generator=g).to(dtype).to(cuda)
+    q = torch.randn((2, 1, 8, 64), generator=g).to(dtype).to(cuda)
+    _decode_close(cuda, q, state[1], state[2], 650)
+    wide = torch.randn((2, 700, 7, 64), generator=g).to(dtype).to(cuda)
+    _decode_close(cuda, q, wide[:, :, 1:5], wide[:, :, 3:7], 333)
+
+
+def test_decode_attention_int8_cache_operands(cuda):
+    # the int8 path: the first n positions quantized and dequantized to
+    # contiguous (B, n, KV, hd) bfloat16 keys and values, n = valid_len
+    from repro_torch.models.layers import dequantize_kv, quantize_kv
+
+    q, kc, vc = _decode_case(cuda, torch.bfloat16, 2, 900, 2, 4, 128, 5)
+    keys = dequantize_kv(*quantize_kv(kc[:, :517]))
+    values = dequantize_kv(*quantize_kv(vc[:, :517]))
+    _decode_close(cuda, q, keys, values, 517)
+
+
+def test_decode_attention_at_the_decode_cells_layout(cuda):
+    # 16 sequences, 16 query heads over 8 KV heads of 128, bfloat16, as the
+    # decode cell has them, at a shorter cache
+    q, kc, vc = _decode_case(cuda, torch.bfloat16, 16, 4096, 8, 2, 128, 9)
+    got = _decode_close(cuda, q, kc, vc, 4000)
+    assert not torch.equal(got, ops.decode_attention(q, kc, vc, 3999))
+    # the limit sees a kernel that skipped a sixteenth of the positions
+    n = 4000 // 16
+    short = ops.decode_attention_plain(q, kc[:, n:], vc[:, n:], 4000 - n)
+    assert _decode_err(got, short) > 10 * DECODE_TOL[torch.bfloat16]
+
+
+def test_decode_attention_raises_on_what_it_does_not_take(cuda):
+    q, kc, vc = _decode_case(cuda, torch.bfloat16, 2, 64, 2, 2, 64, 1)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc, vc, 65)  # past the cache
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc.float(), vc.float(), 10)  # mixed dtypes
+    with pytest.raises(ValueError):
+        ops.decode_attention(q.expand(2, 2, 4, 64), kc, vc, 10)  # two positions
+
+
+def test_qwen3_decode_step_launches_the_kernel_once_a_layer(cuda):
+    from repro_torch import models as pm
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-1.7b").scaled(num_layers=28)
+    params = pm.init_model(cfg, generator=torch.Generator(device=cuda).manual_seed(8),
+                           device=cuda)
+    state = pm.init_decode_state(cfg, 2, 32, device=cuda)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=cuda)
+    before = ops.decode_attention.launches
+    logits, _ = pm.decode_step(params, cfg, state, tok, 5)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches - before == 28 == cfg.num_layers
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -5,7 +5,10 @@ valid token), page-permutation invariance, strided pool views, and the fully
 masked row against ``ref`` (zeros; the Pallas kernel differs there). The
 card kernel's split-and-merge, in its plain version, against the same two
 at 2e-4 (split boundaries, holes on them, splits and sequences with no
-valid token), and the wrapper's split planner."""
+valid token), and the wrapper's split planner. The kernel's contiguous
+mode (a model's decode cache read in place, with no page table): the plain
+split-and-merge over the cache viewed as pages, in order, equals the plain
+``ops.decode_attention`` at several lengths and strides."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +17,8 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.paged_attention import paged_decode_attention as pallas_paged
+from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import (
-    BLOCKS_PER_SM,
     paged_decode_attention,
     paged_decode_attention_split_plain,
     pages_per_split,
@@ -176,27 +179,88 @@ def test_split_plain_matches_the_plain_version_in_bfloat16():
 
 @pytest.mark.parametrize("ppseq", [0, 1, 9, 22, 257])
 @pytest.mark.parametrize("batch,kv_heads", [(1, 1), (12, 8), (16, 8), (200, 8)])
-@pytest.mark.parametrize("max_pages", [1, 1000])
-def test_split_planner_covers_every_page_once(ppseq, batch, kv_heads, max_pages):
-    sm = 132
-    pps = pages_per_split(ppseq, batch, kv_heads, sm, max_pages)
-    assert 1 <= pps <= max_pages
-    n_splits = -(-ppseq // pps) if ppseq else 1
-    covered = [p for s in range(n_splits) for p in range(s * pps, min((s + 1) * pps, ppseq))]
-    assert covered == list(range(ppseq))  # every page once, in table order
-    grid = batch * kv_heads * n_splits
-    assert grid >= batch * kv_heads  # no smaller than one block a (sequence, KV head)
-    # the grid reaches the target, or one block a page of the table
-    assert grid >= min(BLOCKS_PER_SM * sm, batch * kv_heads * max(ppseq, 1))
+@pytest.mark.parametrize("blocks_per_sm", [1, 1000])
+def test_split_planner_covers_every_page_once(ppseq, batch, kv_heads, blocks_per_sm):
+    sm, slots = 132, blocks_per_sm * 132
+    for min_pages in (1, 4, 64):
+        pps = pages_per_split(ppseq, batch, kv_heads, sm, blocks_per_sm, min_pages)
+        assert 1 <= pps <= max(ppseq, 1)
+        n_splits = -(-ppseq // pps) if ppseq else 1
+        covered = [p for s in range(n_splits)
+                   for p in range(s * pps, min((s + 1) * pps, ppseq))]
+        assert covered == list(range(ppseq))  # every page once, in table order
+        grid = batch * kv_heads * n_splits
+        fit = max(1, slots // (batch * kv_heads))
+        # runs of min_pages, or as short as filling the card once takes
+        assert pps >= min(min_pages, -(-max(ppseq, 1) // fit))
+        # a grid beyond what the card holds at once only with long runs
+        assert grid <= max(slots, batch * kv_heads) or pps >= min_pages
 
 
 def test_split_planner_at_the_serving_shape():
-    # 16 sequences over 8 KV heads on 132 SMs: 5 blocks a (sequence, head)
-    # wanted; 9 pages in 9 splits of 1, 22 pages in 6 splits of 4
-    assert pages_per_split(9, 16, 8, 132, 7) == 1
-    assert pages_per_split(22, 16, 8, 132, 7) == 4
-    assert pages_per_split(22, 16, 8, 132, 3) == 3
+    # 16 sequences over 8 KV heads, 4 blocks an SM on 132 SMs: 4 runs a
+    # (sequence, head) fill the card. 9 or 22 pages, runs of 128 wanted:
+    # 4 runs of 3 or 6; 8,192 positions in pages of 16: 4 runs of 128; the
+    # decode cell's 32,768 in tiles of 32, runs of 64: 16 (3.9 grids); one
+    # block an SM, 1 run fills the card: the same 16
+    assert pages_per_split(9, 16, 8, 132, 4, 128) == 3
+    assert pages_per_split(22, 16, 8, 132, 4, 128) == 6
+    assert pages_per_split(512, 16, 8, 132, 4, 128) == 128
+    assert pages_per_split(1024, 16, 8, 132, 4, 64) == 64
+    assert pages_per_split(1024, 16, 8, 132, 1, 64) == 64
     with pytest.raises(ValueError):
         paged_decode_attention_split_plain(*(torch.zeros(s) for s in (
             (1, 2, 16), (2, 4, 1, 16), (2, 4, 1, 16))),
             torch.zeros((1, 2), dtype=torch.int32), torch.ones(1), pages_per_split=0)
+
+
+def _cache_layout(layout, B, S, KV, hd, g):
+    """A decode cache (B, S, KV, hd) as the model's state holds it, or
+    sliced out of a larger buffer, with its strides."""
+    if layout == "contiguous":
+        return torch.randn((B, S, KV, hd), generator=g)
+    if layout == "state_group":  # state[...][g] of a (G, B, S, KV, hd) state
+        return torch.randn((3, B, S, KV, hd), generator=g)[1]
+    if layout == "longer_buffer":  # batch stride above S * token stride
+        return torch.randn((B, S + 32, KV, hd), generator=g)[:, :S]
+    return torch.randn((B, S, KV + 3, hd), generator=g)[:, :, 2:2 + KV]  # head slice
+
+
+def _as_pages(cache, page_size):
+    """(pages, table): ``cache`` (B, S, KV, hd) read as a pool of pages of
+    ``page_size`` tokens with a table naming each sequence's pages in
+    order, through the cache's own strides and no copy. With ``page_size``
+    S, page b is sequence b at the batch stride: the kernel's contiguous
+    mode, token t of sequence b at b * stride_b + t * stride_t."""
+    B, S, KV, hd = cache.shape
+    sb, st, sh, sd = cache.stride()
+    page = sb if page_size == S else page_size * st  # the page stride
+    assert S % page_size == 0 and sb % page == 0
+    per_seq = sb // page
+    n_pages = (B - 1) * per_seq + S // page_size
+    pages = cache.as_strided((n_pages, page_size, KV, hd), (page, st, sh, sd),
+                             cache.storage_offset())
+    table = (torch.arange(B)[:, None] * per_seq
+             + torch.arange(S // page_size)[None, :]).to(torch.int32)
+    return pages, table
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "state_group", "longer_buffer",
+                                    "head_slice"])
+@pytest.mark.parametrize("valid_len", [1, 37, 64])
+@pytest.mark.parametrize("page_size", [16, "sequence"])
+def test_split_plain_over_a_cache_in_place_matches_decode_attention(layout, valid_len,
+                                                                    page_size):
+    # float32 both ways; the merge by log-sum-exp and the one softmax differ
+    # only by float32 rounding, 1e-5 of values of order 1
+    g = torch.Generator().manual_seed(valid_len)
+    B, S, KV, rep, hd = 3, 64, 2, 2, 32
+    kc, vc = (_cache_layout(layout, B, S, KV, hd, g) for _ in range(2))
+    q = torch.randn((B, 1, KV * rep, hd), generator=g)
+    ps = S if page_size == "sequence" else page_size
+    (kp, table), (vp, _) = _as_pages(kc, ps), _as_pages(vc, ps)
+    lens = torch.full((B,), valid_len, dtype=torch.int32)
+    want = ops.decode_attention(q, kc, vc, valid_len)[:, 0]
+    for pps in sorted({1, 2, table.shape[1]}):
+        got = paged_decode_attention_split_plain(q[:, 0], kp, vp, table, lens, pps)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
